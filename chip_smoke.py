@@ -18,7 +18,9 @@ script exits non-zero without its result line:
    seeded random weights) through ``RealEngine.repeated_sampling`` on 8
    ragged prompts (r=4, max_new=64), ProD-D targets, ``train_predictor`` on φ
    and median / q0.9 predictions through the fused head; every kernel's
-   launch count must rise during this phase;
+   launch count must rise during this phase. The head kernel is then held
+   against its plain version on the trained weights and the served phi, and
+   its disagreement is printed against the logit scale;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device, or
@@ -233,6 +235,8 @@ def serve(torch, counters):
           f"test MAE {out['mae']:.3f} noise radius {out['noise_radius']:.3f} "
           f"final soft-CE {out['final_loss']:.4f}")
     print(f"serve: launches on the main path {json.dumps(launches)}")
+    head_checks(torch, counters["prod_head"], out["predictor"],
+                torch.as_tensor(phi[B // 2:], dtype=torch.float32, device=dev))
 
     # per-call breakdown of one prefill and one decode step (not counted)
     tokens = torch.as_tensor(prompts, device=dev)
@@ -252,6 +256,67 @@ def serve(torch, counters):
         device_profile(torch, lambda: model.decode_step(params, nxt, cache, pos, pos + 1),
                        "decode step")
     return launches
+
+
+def head_fp64(torch, phi, w1, b1, w2, b2):
+    """Logits and probs of the head in fp64: the exact answer that both fp32
+    versions approximate."""
+    f64 = torch.float64
+    h = torch.relu(phi.to(f64) @ w1.to(f64) + b1.to(f64))
+    logits = h @ w2.to(f64) + b2.to(f64)
+    return logits, torch.softmax(logits, dim=-1)
+
+
+def head_checks(torch, prod_head, pred, phi) -> None:
+    """The head kernel against its plain version as the serve phase calls it:
+    the trained weights, the served phi of the held-out half (B = n // 2 = 4
+    rows), the median form (qs=None) and the quantile form (0.5, 0.9); same
+    tolerance as the kernel phase. Then, outside the main path, how the
+    disagreement grows with the logit scale at d=4096: synthetic weights with
+    std c / sqrt(fan_in), each version held against the fp64 head."""
+    from repro_torch.kernels import ref
+
+    dev = phi.device
+    p = pred.params
+    args = (phi, p["w1"], p["b1"], p["w2"], p["b2"], pred.edges)
+    logits, p64 = head_fp64(torch, *args[:5])
+    for qs in (None, (0.5, 0.9)):
+        levels = torch.tensor([0.5] if qs is None else qs, device=dev)
+        probs, quants = prod_head(*args, levels)
+        p_ref, q_ref = ref.prod_head_ref(*args, qs=None if qs is None else levels)
+        quants = quants[:, 0] if qs is None else quants
+        torch.cuda.synchronize()
+        form = "median" if qs is None else f"qs={qs}"
+        print(f"head check, trained weights, served phi B={phi.shape[0]} {form}: logit std "
+              f"{float(logits.std()):.4g}, max |logit| {float(logits.abs().max()):.4g}; probs "
+              f"max|kernel-plain| {max_err(torch, probs, p_ref):.3g}, |kernel-fp64| "
+              f"{max_err(torch, probs, p64):.3g}, |plain-fp64| {max_err(torch, p_ref, p64):.3g}; "
+              f"quantiles max|kernel-plain| {max_err(torch, quants, q_ref):.3g}")
+        check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
+              f"prod_head probs, trained weights, {form}: max err {max_err(torch, probs, p_ref)}")
+        check(torch.allclose(quants, q_ref, rtol=1e-4, atol=1e-3),
+              f"prod_head quantiles, trained weights, {form}: max err "
+              f"{max_err(torch, quants, q_ref)}")
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, d, hidden, K = 40, 4096, 512, 64
+    x = torch.randn(B, d, generator=g, device=dev)
+    w1 = torch.randn(d, hidden, generator=g, device=dev)
+    b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
+    w2 = torch.randn(hidden, K, generator=g, device=dev)
+    b2 = torch.zeros(K, device=dev)
+    edges = torch.linspace(0.0, 512.0, K + 1, device=dev)
+    levels = torch.tensor([0.5], device=dev)
+    for c in (1.0, 2.0, 4.0, 8.0, 0.2 * d ** 0.5):     # the last: std 0.2, as tests/test_kernels.py
+        sw = (x, w1 * (c / d ** 0.5), b1, w2 * (c / hidden ** 0.5), b2)
+        probs, _ = prod_head(*sw, edges, levels)
+        p_ref, _ = ref.prod_head_ref(*sw, edges)
+        logits, p64 = head_fp64(torch, *sw)
+        ok = torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6)
+        print(f"head logit-scale sweep c={c:.4g}: logit std {float(logits.std()):.4g}; probs "
+              f"max|kernel-plain| {max_err(torch, probs, p_ref):.3g}, |kernel-fp64| "
+              f"{max_err(torch, probs, p64):.3g}, |plain-fp64| {max_err(torch, p_ref, p64):.3g}; "
+              f"within rtol 1e-5/atol 1e-6 of plain: {ok}")
 
 
 def device_profile(torch, fn, label: str, top: int = 6) -> None:

@@ -14,11 +14,11 @@
 //    chunks): each block owns 16 rows of phi and 32 hidden units. phi is
 //    staged through shared memory in d-tiles of 256; each of the 8 warps walks
 //    32 rows of the W1 tile with one lane per hidden unit (one coalesced
-//    128-byte load per W1 row), keeping 16 fp32 accumulators per lane. The
-//    warps' partial sums meet in shared memory, relu(+b1) gives the block's
-//    32 hidden activations for its 16 rows, and the block writes their
-//    contribution to the K logits (h_chunk W2[chunk, :]) to a small fp32
-//    scratch (B, hidden/32, K). Splitting hidden across blocks is what spreads
+//    128-byte load per W1 row), keeping 16 fp32 accumulators per lane, each
+//    fed by a per-tile partial sum. The warps' partial sums meet in shared
+//    memory, relu(+b1) gives the block's 32 hidden activations for its 16
+//    rows, and the block writes their contribution to the K logits (h_chunk
+//    W2[chunk, :]) to a small fp32 scratch (B, hidden/32, K). Splitting hidden across blocks is what spreads
 //    the W1 read over many SMs at the serving batch (B=8 gives 16 blocks).
 //  * kernel 2 (prod_head_epilogue), one warp per row: sums the partial logits,
 //    + b2, softmax, sequential cumsum, then the crossing and interpolation for
@@ -61,16 +61,25 @@ prod_head_hidden(const T* __restrict__ phi, const float* __restrict__ w1,
       phis[r][c] = x;
     }
     __syncthreads();
+    // Each d-tile's 32 products are summed apart and then added to acc: a
+    // chain of 32 + d/256 roundings instead of d/8. Against the fp64 head at
+    // d=4096 this keeps the probs' error at or below that of cuBLAS' fp32
+    // product (the logit-scale sweep of chip_smoke.py).
     const int kb = warp * 32;
+    float part[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) part[r] = 0.f;
 #pragma unroll 4
     for (int kk = 0; kk < 32; ++kk) {
       const int kd = d0 + kb + kk;
       if (kd < d) {
         const float w = w1[(size_t)kd * hidden + col0 + lane];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(phis[r][kb + kk], w, acc[r]);
+        for (int r = 0; r < kRows; ++r) part[r] = fmaf(phis[r][kb + kk], w, part[r]);
       }
     }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] += part[r];
     __syncthreads();
   }
 

@@ -19,7 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.common.config import PredictorConfig
+from repro_torch.common.config import ModelConfig, PredictorConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import bins as bins_mod
@@ -45,7 +45,8 @@ def fit_and_predict(lens: np.ndarray, phi: np.ndarray, n_bins: int, seed: int = 
                     qs=(0.5, 0.9), device: DeviceLike = None) -> Dict[str, object]:
     """ProD-D targets from the (N, r) lengths, the head trained on the first
     half's φ, then the second half's median and quantiles through the fused
-    head. Returns the predictions and their test MAE beside the noise radius."""
+    head. Returns the predictions, their test MAE beside the noise radius, and
+    the trained ``predictor``."""
     dev = resolve_device(device)
     lens_t = torch.as_tensor(lens, device=dev)
     phi_t = torch.as_tensor(phi, dtype=torch.float32, device=dev)
@@ -61,12 +62,19 @@ def fit_and_predict(lens: np.ndarray, phi: np.ndarray, n_bins: int, seed: int = 
     return {"median": est.cpu().numpy(), "quantiles": quants.cpu().numpy(),
             "qs": tuple(qs), "mae": mae(est, true_med),
             "noise_radius": noise_radius(lens_t),
-            "final_loss": float(pred.losses[-1])}
+            "final_loss": float(pred.losses[-1]), "predictor": pred}
+
+
+def serving_config(name: str) -> ModelConfig:
+    """The config ``--mode real`` serves: the model's own dtype (bf16 for
+    Llama-3-8B), except tiny-lm, which the reference serves in fp32."""
+    cfg = get_config(name)
+    return cfg.with_overrides(dtype="float32") if cfg.name == "tiny-lm" else cfg
 
 
 def run_real(args) -> Dict[str, object]:
     dev = resolve_device(args.device)
-    cfg = get_config(args.model).with_overrides(dtype=args.dtype)
+    cfg = serving_config(args.model)
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
     eng = RealEngine(model, params, max_new=args.max_new)
@@ -85,8 +93,6 @@ def main(argv=None):
     ap.add_argument("--mode", choices=["real"], default="real",
                     help="'sim' (the cluster simulator) is not ported yet")
     ap.add_argument("--model", default="tiny-lm")
-    ap.add_argument("--dtype", default="float32",
-                    help="model dtype; float32 as the reference serves tiny-lm")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-requests", type=int, default=200)
     ap.add_argument("--max-new", type=int, default=96)

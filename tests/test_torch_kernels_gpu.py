@@ -89,6 +89,28 @@ def test_prod_head_kernel_vs_plain(B, d, hid, K, qs):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c", [4.0, 8.0, 12.8])
+def test_prod_head_kernel_large_logits_vs_fp64(c):
+    """At d=4096 with weights of std c/sqrt(fan_in) (c=12.8 is std 0.2, the
+    scale of tests/test_kernels.py) the logits reach std 10-110, and any two
+    fp32 summation orders differ by more than the probs tolerance above. Here
+    both fp32 versions are held against the fp64 head instead: the kernel's
+    probs error is at most twice that of the plain version."""
+    dev = cuda_device()
+    B, d, hid, K = 40, 4096, 512, 64
+    rng = np.random.default_rng(3)
+    arrs = [rng.standard_normal((B, d)), rng.standard_normal((d, hid)) * c / d ** 0.5,
+            rng.standard_normal(hid) * 0.01, rng.standard_normal((hid, K)) * c / hid ** 0.5,
+            np.zeros(K), np.linspace(0.0, 512.0, K + 1)]
+    args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+    phi, w1, b1, w2, b2, _ = (a.double() for a in args)
+    exact = torch.softmax(torch.relu(phi @ w1 + b1) @ w2 + b2, dim=-1)
+    kernel_err = (ops.prod_head(*args)[0].double() - exact).abs().max()
+    plain_err = (ref.prod_head_ref(*args)[0].double() - exact).abs().max()
+    assert kernel_err <= 2 * plain_err, (float(kernel_err), float(plain_err))
+
+
+@pytest.mark.gpu
 def test_kernels_count_their_launches():
     from repro_torch.kernels.decode_attention import decode_attention_cuda
 

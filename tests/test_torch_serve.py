@@ -127,3 +127,8 @@ def test_repeated_sampling_and_launcher_on_cpu():
     assert np.isfinite(out["median"]).all() and out["median"].shape == (3,)
     assert out["quantiles"].shape == (3, 2)
     assert (out["quantiles"][:, 1] >= out["quantiles"][:, 0] - 1e-4).all()
+
+
+@pytest.mark.parametrize("name,dtype", [("tiny-lm", "float32"), ("llama3-8b", "bfloat16")])
+def test_launcher_serves_each_model_in_its_dtype(name, dtype):
+    assert serve.serving_config(name).dtype == dtype
