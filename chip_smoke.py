@@ -12,15 +12,23 @@ script exits non-zero without its result line:
    parallel, timed;
 3. kernels: each CUDA kernel against its plain PyTorch version at the serving
    shapes, with the stated tolerance, timed with CUDA events beside the plain
-   version, one PyTorch library call as a yardstick (timed only, never used
-   by the port) and the least time the card could take (``bound_ms``);
-4. serve: Llama-3-8B at full width and depth (32 layers, d=4096, bf16,
-   seeded random weights) through ``RealEngine.repeated_sampling`` on 8
-   ragged prompts (r=4, max_new=64), ProD-D targets, ``train_predictor`` on φ
-   and median / q0.9 predictions through the fused head; every kernel's
-   launch count must rise during this phase. The head kernel is then held
-   against its plain version on the trained weights and the served phi, and
-   its disagreement is printed against the logit scale;
+   version, one PyTorch library call as a yardstick where one computes the
+   same function (timed only, never used by the port) and the least time the
+   card could take (``bound_ms``);
+4. serve, once per model, each at full width and depth with seeded random
+   weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
+   (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
+   ``train_predictor`` on φ and median / q0.9 predictions through the fused
+   head:
+   - Llama-3-8B (32 layers, d=4096, bf16), r=4: flash, decode and head;
+   - Zamba2-1.2B (38 Mamba2 layers + the shared attention block 6 times,
+     d=2048, bf16), r=4: all four kernels;
+   - Mamba2-130M (24 layers, d=768, bf16), r=2: scan and head.
+   The launch counts are set to 0 before each model's run and read after it;
+   each kernel the model's path runs must have risen. The head kernel is then
+   held against its plain version on the trained weights and the served phi
+   (and, after Llama, its disagreement is printed against the logit scale);
+   one prefill and one decode step are timed and profiled;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device, or
@@ -66,6 +74,20 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_scan_flops(B: int, S: int, H: int, P: int, N: int) -> float:
+    """Least fp32 operations of the SSD scan (an FMA counts 2). The
+    recurrence h = exp(a) h + (dt x) B^T, y = C h needs 5 P N per (row, step,
+    head): a multiply and an FMA per state entry, and an FMA for y. The
+    chunked form with chunk Q needs per step, counting only products on or
+    below the diagonal: Q P for (C B^T o L o dt) x, Q N / H for C B^T (one
+    group shared by the H heads), 2 P N for C h, 2 P N for the state update
+    and P N / Q to decay h once a chunk. Elementwise terms are left out. Its
+    least over Q (Q near sqrt(N): ~4.2 P N at the served widths) is below
+    the recurrence's, and is what the bound counts."""
+    per_step = min(q * (P + N / H) + 4 * P * N + P * N / q for q in range(1, S + 1))
+    return B * S * H * min(5 * P * N, per_step)
 
 
 def max_err(torch, a, b) -> float:
@@ -115,92 +137,192 @@ def kernel_checks(torch, ref, kernels):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
 
-    # --- flash attention: B=8, S=512, H=32, KV=8, hd=128, bf16, causal,
-    # ragged key lengths; tolerance bf16 2e-2 (tests/test_kernels.py): both
-    # sides compute in fp32 and round the output to bf16 once.
-    B, S, H, KV, hd = 8, 512, 32, 8, 128
+    # --- flash attention at the two prefill shapes of the served models:
+    # Llama-3-8B (H=32, KV=8, hd=128) and Zamba2-1.2B's shared block (H=32,
+    # KV=32, hd=64, window 8192); B=8, S=512, bf16, causal, ragged key
+    # lengths; tolerance bf16 2e-2 (tests/test_kernels.py): both sides
+    # compute in fp32 and round the output to bf16 once.
     bf = torch.bfloat16
-    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(bf)
-    k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(bf)
-    v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(bf)
+    B, S = 8, 512
     lens = torch.tensor([512, 300, 257, 480, 399, 511, 266, 448], dtype=torch.int32, device=dev)
-    out = kernels["flash_attention"](q, k, v, causal=True, kv_lengths=lens)
-    want = ref.flash_attention_ref(q, k, v, causal=True, kv_lengths=lens)
-    torch.cuda.synchronize()
-    check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
-          f"flash_attention: max err {max_err(torch, out, want)}")
-    ms = time_ms(torch, lambda: kernels["flash_attention"](q, k, v, causal=True, kv_lengths=lens))
-    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
-                                                              kv_lengths=lens), iters=5)
-    G = H // KV
-    qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
-                  v.repeat_interleave(G, dim=2).transpose(1, 2))
-    pos = torch.arange(S, device=dev)
-    mask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-    lens_l = lens.long().cpu()
-    pairs = int(sum(torch.minimum(torch.arange(1, S + 1), n).sum() for n in lens_l))
-    nbytes = 2 * (2 * B * S * H * hd + 2 * int(lens_l.sum()) * KV * hd) + 4 * B
-    flops = 4 * hd * H * pairs
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    rows.append({"name": "flash_attention",
-                 "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal ragged",
-                 "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    for H, KV, hd, window in ((32, 8, 128, 0), (32, 32, 64, 8192)):
+        q = torch.randn(B, S, H, hd, generator=g, device=dev).to(bf)
+        k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(bf)
+        v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(bf)
+        call = lambda: kernels["flash_attention"](q, k, v, causal=True, window=window,
+                                                  kv_lengths=lens)
+        out = call()
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window, kv_lengths=lens)
+        torch.cuda.synchronize()
+        check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
+              f"flash_attention hd={hd}: max err {max_err(torch, out, want)}")
+        ms = time_ms(torch, call)
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window, kv_lengths=lens), iters=5)
+        G = H // KV
+        qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
+                      v.repeat_interleave(G, dim=2).transpose(1, 2))
+        pos = torch.arange(S, device=dev)
+        allowed = pos[None, :] <= pos[:, None]
+        if window:
+            allowed = allowed & (pos[:, None] - pos[None, :] < window)
+        mask = (allowed[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                       attn_mask=mask))
+        pairs = int(mask.sum())               # (query, key) pairs this run computes
+        nbytes = 2 * (2 * B * S * H * hd + 2 * int(lens.long().sum()) * KV * hd) + 4 * B
+        flops = 4 * hd * H * pairs
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        rows.append({"name": "flash_attention",
+                     "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal ragged"
+                              + (f" window={window}" if window else ""),
+                     "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
 
-    # --- decode attention: B=8, Sc=576, ragged lengths, bf16; tolerance 2e-2.
+    # --- decode attention at the two decode shapes: B=8, Sc=576, ragged
+    # lengths, bf16, Llama-3-8B's heads and Zamba2's; tolerance 2e-2.
     Sc = 576
-    qd = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
-    kc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
-    vc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
     dl = torch.tensor([576, 301, 258, 540, 400, 575, 267, 449], dtype=torch.int32, device=dev)
-    out = kernels["decode_attention"](qd, kc, vc, dl)
-    want = ref.decode_attention_ref(qd, kc, vc, dl)
-    torch.cuda.synchronize()
-    check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
-          f"decode_attention: max err {max_err(torch, out, want)}")
-    ms = time_ms(torch, lambda: kernels["decode_attention"](qd, kc, vc, dl), iters=50)
-    plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, dl))
-    qdt = qd[:, :, None]
-    kct = kc.repeat_interleave(G, dim=2).transpose(1, 2)
-    vct = vc.repeat_interleave(G, dim=2).transpose(1, 2)
-    dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask),
-                     iters=50)
-    n_keys = int(dl.long().sum())
-    nbytes = 2 * (2 * B * H * hd + 2 * n_keys * KV * hd) + 4 * B
-    flops = 4 * hd * H * n_keys
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    rows.append({"name": "decode_attention", "shape": f"B={B} Sc={Sc} H={H} KV={KV} hd={hd} bf16 ragged",
-                 "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    for H, KV, hd in ((32, 8, 128), (32, 32, 64)):
+        qd = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
+        kc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
+        vc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
+        out = kernels["decode_attention"](qd, kc, vc, dl)
+        want = ref.decode_attention_ref(qd, kc, vc, dl)
+        torch.cuda.synchronize()
+        check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
+              f"decode_attention hd={hd}: max err {max_err(torch, out, want)}")
+        ms = time_ms(torch, lambda: kernels["decode_attention"](qd, kc, vc, dl), iters=50)
+        plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, dl))
+        G = H // KV
+        qdt = qd[:, :, None]
+        kct = kc.repeat_interleave(G, dim=2).transpose(1, 2)
+        vct = vc.repeat_interleave(G, dim=2).transpose(1, 2)
+        dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qdt, kct, vct,
+                                                                       attn_mask=dmask),
+                         iters=50)
+        n_keys = int(dl.long().sum())
+        nbytes = 2 * (2 * B * H * hd + 2 * n_keys * KV * hd) + 4 * B
+        flops = 4 * hd * H * n_keys
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        rows.append({"name": "decode_attention",
+                     "shape": f"B={B} Sc={Sc} H={H} KV={KV} hd={hd} bf16 ragged",
+                     "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+
+    # --- ssd_scan: Zamba2's prefill shape (B=8, S=512, H=64, P=64, N=64),
+    # Mamba2-130M's (H=24, N=128) and a ragged S=509, bf16 inputs as the
+    # served models give them, dt = softplus(randn) and a = -dt; then both
+    # widths at a ragged S with a slow decay, a = -0.01 dt, where the state
+    # carried across chunks is most of y (with a = -dt, exp(cum_i) hides it
+    # after a few rows of each chunk). Tolerances: y bf16 2e-2 (rounded once
+    # from fp32 on both sides), h fp32 at the reference's SSD tolerance 2e-4
+    # (tests/test_kernels.py: chunked decays exp(cum_i - cum_j) against the
+    # recurrence's product of exp(a_t)). No single PyTorch call computes the
+    # scan: library_ms is null.
+    for B, S, H, P, N, decay in ((8, 512, 64, 64, 64, 1.0), (8, 512, 24, 64, 128, 1.0),
+                                 (8, 509, 64, 64, 64, 1.0), (8, 509, 64, 64, 64, 0.01),
+                                 (8, 509, 24, 64, 128, 0.01)):
+        x = torch.randn(B, S, H, P, generator=g, device=dev).to(bf)
+        dt = F.softplus(torch.randn(B, S, H, generator=g, device=dev))
+        a = -decay * dt
+        Bm = torch.randn(B, S, N, generator=g, device=dev).to(bf)
+        Cm = torch.randn(B, S, N, generator=g, device=dev).to(bf)
+        args = (x, dt, a, Bm, Cm)
+        y, h = kernels["ssd_scan"](*args)
+        y_ref, h_ref = ref.ssd_scan_ref(*args)
+        torch.cuda.synchronize()
+        shape = f"B={B} S={S} H={H} P={P} N={N} bf16" + (f" a=-{decay}dt" if decay != 1 else "")
+        print(f"ssd_scan {shape}: y max|err| {max_err(torch, y, y_ref):.3g} at max|y| "
+              f"{float(y_ref.float().abs().max()):.4g} (bf16 step there "
+              f"{2.0 ** (int(torch.log2(y_ref.float().abs().max()).floor()) - 7):.3g}); h max|err| "
+              f"{max_err(torch, h, h_ref):.3g} at max|h| {float(h_ref.abs().max()):.4g}; "
+              f"decay over a 64-step chunk, median {float(a[:, :64].sum(1).exp().median()):.3g}")
+        check(torch.allclose(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2),
+              f"ssd_scan y {shape}: max err {max_err(torch, y, y_ref)}")
+        check(torch.allclose(h, h_ref, rtol=2e-4, atol=2e-4),
+              f"ssd_scan h {shape}: max err {max_err(torch, h, h_ref)}")
+        ms = time_ms(torch, lambda: kernels["ssd_scan"](*args))
+        plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args), iters=3, warmup=1)
+        nbytes = (2 * 2 * B * S * H * P + 2 * 4 * B * S * H + 2 * 2 * B * S * N
+                  + 4 * B * H * P * N)
+        b_ms, b_by = bound(nbytes, ssd_scan_flops(B, S, H, P, N), FP32_FLOPS)
+        rows.append({"name": "ssd_scan", "shape": shape,
+                     "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, h, h_ref)),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
     for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"kernel {r['name']:16s} {r['shape']}: max|err| {r['max_abs_err']:.3g}  "
-              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library {lib}  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
 
-def serve(torch, counters):
-    """Phase 4: the port's main path on Llama-3-8B at full width and depth."""
+# each served model: generations per prompt, and the kernels its path runs
+SERVE_PHASES = (
+    ("llama3-8b", 4, ("flash_attention", "decode_attention", "prod_head")),
+    ("zamba2-1.2b", 4, ("ssd_scan", "flash_attention", "decode_attention", "prod_head")),
+    ("mamba2-130m", 2, ("ssd_scan", "prod_head")),
+)
+
+
+def expected_launches(kinds, r: int, max_new: int):
+    """Launches of each kernel when every row of every generation runs to
+    max_new (with random weights EOS is rare): one scan per SSM layer and
+    one flash call per attention layer in each prefill, one decode call per
+    attention layer in each of the max_new steps, and two head calls."""
+    n_attn = sum(k != "ssm" for k in kinds)
+    return {"ssd_scan": r * sum(k == "ssm" for k in kinds), "flash_attention": r * n_attn,
+            "decode_attention": r * max_new * n_attn, "prod_head": 2}
+
+
+def model_bounds(cfg, kinds, n_params: int, B: int, Sp: int, cache_len: int):
+    """Least times of one prefill and one decode step of the served model.
+    Prefill: the weight products alone (2 FLOPs per weight applied per
+    token; attention scores and the scan left out) at the bf16 peak. Decode
+    step: every weight read once (the shared block once, an untied
+    embedding table only at its B rows), the SSM states read and written in
+    fp32 and the K/V prefix read, over the memory rate."""
+    d, hd = cfg.d_model, cfg.head_dim
+    H, P, N = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
+    ssm_w = d * (2 * H * P + 2 * N + H) + H * P * d
+    attn_w = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    applied = sum(ssm_w if k == "ssm" else attn_w for k in kinds)
+    prefill_flops = 2 * B * Sp * applied
+    weights = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * d)
+    n_ssm = sum(k == "ssm" for k in kinds)
+    n_attn = len(kinds) - n_ssm
+    step_bytes = (2 * weights + n_ssm * 2 * 4 * B * H * P * N
+                  + n_attn * 2 * 2 * B * cache_len * cfg.n_kv_heads * hd)
+    return (prefill_flops, prefill_flops / BF16_FLOPS * 1e3,
+            step_bytes, step_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool):
+    """Phase 4 for one model: the port's main path at full width and depth."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import fit_and_predict
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import layer_kinds
     from repro_torch.serving.engine import RealEngine
 
     dev = torch.device("cuda")
-    cfg = get_config("llama3-8b")           # bf16, 32 layers, d=4096, untied
+    cfg = get_config(name)                   # each model in its own dtype (bf16)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(int(p.numel()) for p in _leaves(params))
-    print(f"serve: {cfg.name} {n_params / 1e9:.3f}B params ({cfg.dtype}) initialised in "
-          f"{time.perf_counter() - t0:.1f} s")
+    kinds = layer_kinds(cfg)
+    print(f"serve {name}: {n_params / 1e9:.3f}B params ({cfg.dtype}, d={cfg.d_model}, "
+          f"{sum(k == 'ssm' for k in kinds)} SSM + {sum(k != 'ssm' for k in kinds)} attention "
+          f"layers) initialised in {time.perf_counter() - t0:.1f} s")
 
-    B, Sp, r, max_new = 8, 512, 4, 64
+    B, Sp, max_new = 8, 512, 64
     rng = np.random.default_rng(0)
     plens = np.array([512, 300, 257, 480, 399, 511, 266, 448])
     prompts = np.zeros((B, Sp), np.int64)
@@ -217,44 +339,56 @@ def serve(torch, counters):
     gen_s = time.perf_counter() - t0
     out = fit_and_predict(lens, phi, cfg.predictor_bins, seed=1, qs=(0.5, 0.9), device=dev)
     torch.cuda.synchronize()
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = {k: c.launches for k, c in counters.items()}
 
-    check(phi.shape == (B, cfg.d_model) and np.isfinite(phi).all(), "phi shape/finite")
-    check(lens.shape == (B, r) and lens.min() >= 1 and lens.max() <= max_new, "lengths range")
+    check(phi.shape == (B, cfg.d_model) and np.isfinite(phi).all(), f"{name}: phi shape/finite")
+    check(lens.shape == (B, r) and lens.min() >= 1 and lens.max() <= max_new,
+          f"{name}: lengths range")
     med, quants = out["median"], out["quantiles"]
-    check(np.isfinite(med).all() and np.isfinite(quants).all(), "predictions finite")
-    check((quants[:, 1] >= quants[:, 0] - 1e-4).all(), "q0.9 >= q0.5")
-    check(np.allclose(med, quants[:, 0], rtol=1e-5, atol=1e-4), "median == q0.5 column")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    check(np.isfinite(med).all() and np.isfinite(quants).all(), f"{name}: predictions finite")
+    check((quants[:, 1] >= quants[:, 0] - 1e-4).all(), f"{name}: q0.9 >= q0.5")
+    check(np.allclose(med, quants[:, 0], rtol=1e-5, atol=1e-4), f"{name}: median == q0.5 column")
+    for k in kernels_on_path:
+        check(launches[k] > 0, f"{name}: kernel {k} was not launched on the main path")
+    for k in set(counters) - set(kernels_on_path):
+        check(launches[k] == 0, f"{name}: kernel {k} launched off its path")
+    expect = expected_launches(kinds, r, max_new)
+    if lens.min() == max_new:
+        for k in kernels_on_path:
+            check(launches[k] == expect[k], f"{name}: {k} launched {launches[k]} times, "
+                  f"expected {expect[k]}")
     n_tok = int(lens.sum())
-    print(f"serve: repeated_sampling B={B} Sp={Sp} r={r} max_new={max_new}: {gen_s:.2f} s, "
-          f"{n_tok} generated tokens, {n_tok / gen_s:.1f} tokens/s")
-    print(f"serve: lengths {lens.tolist()}")
-    print(f"serve: median {np.round(med, 3).tolist()} q0.9 {np.round(quants[:, 1], 3).tolist()} "
-          f"test MAE {out['mae']:.3f} noise radius {out['noise_radius']:.3f} "
-          f"final soft-CE {out['final_loss']:.4f}")
-    print(f"serve: launches on the main path {json.dumps(launches)}")
+    print(f"serve {name}: repeated_sampling B={B} Sp={Sp} r={r} max_new={max_new}: "
+          f"{gen_s:.2f} s, {n_tok} generated tokens, {n_tok / gen_s:.1f} tokens/s, "
+          f"{1e3 * gen_s / (r * max_new):.2f} ms per decode step (wall over r x max_new "
+          f"steps, the r prefills included)")
+    print(f"serve {name}: lengths {lens.tolist()}")
+    print(f"serve {name}: median {np.round(med, 3).tolist()} q0.9 "
+          f"{np.round(quants[:, 1], 3).tolist()} test MAE {out['mae']:.3f} noise radius "
+          f"{out['noise_radius']:.3f} final soft-CE {out['final_loss']:.4f}")
+    print(f"serve {name}: launches on the main path {json.dumps(launches)}")
     head_checks(torch, counters["prod_head"], out["predictor"],
-                torch.as_tensor(phi[B // 2:], dtype=torch.float32, device=dev))
+                torch.as_tensor(phi[B // 2:], dtype=torch.float32, device=dev), sweep=sweep)
 
     # per-call breakdown of one prefill and one decode step (not counted)
     tokens = torch.as_tensor(prompts, device=dev)
     valid = torch.arange(Sp, device=dev)[None, :] < torch.as_tensor(plens, device=dev)[:, None]
     with torch.no_grad():
-        prefill_ms = time_ms(torch, lambda: model.prefill(params, tokens, attn_valid=valid,
-                                                          logits_mode="none"), iters=3, warmup=1)
+        prefill = lambda: model.prefill(params, tokens, attn_valid=valid, logits_mode="none")
+        prefill_ms = time_ms(torch, prefill, iters=3, warmup=1)
         cache = model.init_cache(B, Sp + max_new, device=dev)
         pos = torch.as_tensor(plens, dtype=torch.int32, device=dev)
         nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
-        step_ms = time_ms(torch, lambda: model.decode_step(params, nxt, cache, pos, pos + 1),
-                          iters=10, warmup=2)
-        print(f"serve: prefill (B={B}, S={Sp}) {prefill_ms:.2f} ms; decode step (B={B}, "
-              f"Sc={Sp + max_new}) {step_ms:.2f} ms")
-        device_profile(torch, lambda: model.prefill(params, tokens, attn_valid=valid,
-                                                    logits_mode="none"), "prefill")
-        device_profile(torch, lambda: model.decode_step(params, nxt, cache, pos, pos + 1),
-                       "decode step")
+        step = lambda: model.decode_step(params, nxt, cache, pos, pos + 1)
+        step_ms = time_ms(torch, step, iters=10, warmup=2)
+        flops, flops_ms, step_bytes, bytes_ms = model_bounds(cfg, kinds, n_params, B, Sp,
+                                                             Sp + max_new)
+        print(f"serve {name}: prefill (B={B}, S={Sp}) {prefill_ms:.2f} ms, bound "
+              f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP of weight products); decode step "
+              f"(B={B}, Sc={Sp + max_new}) {step_ms:.2f} ms, bound {bytes_ms:.3f} ms "
+              f"({step_bytes / 1e9:.2f} GB)")
+        device_profile(torch, prefill, f"{name} prefill")
+        device_profile(torch, step, f"{name} decode step")
     return launches
 
 
@@ -267,13 +401,14 @@ def head_fp64(torch, phi, w1, b1, w2, b2):
     return logits, torch.softmax(logits, dim=-1)
 
 
-def head_checks(torch, prod_head, pred, phi) -> None:
+def head_checks(torch, prod_head, pred, phi, sweep: bool) -> None:
     """The head kernel against its plain version as the serve phase calls it:
     the trained weights, the served phi of the held-out half (B = n // 2 = 4
-    rows), the median form (qs=None) and the quantile form (0.5, 0.9); same
-    tolerance as the kernel phase. Then, outside the main path, how the
-    disagreement grows with the logit scale at d=4096: synthetic weights with
-    std c / sqrt(fan_in), each version held against the fp64 head."""
+    rows, d of the served model), the median form (qs=None) and the quantile
+    form (0.5, 0.9); same tolerance as the kernel phase. Then, with ``sweep``
+    and outside the main path, how the disagreement grows with the logit
+    scale at d=4096: synthetic weights with std c / sqrt(fan_in), each
+    version held against the fp64 head."""
     from repro_torch.kernels import ref
 
     dev = phi.device
@@ -287,7 +422,8 @@ def head_checks(torch, prod_head, pred, phi) -> None:
         quants = quants[:, 0] if qs is None else quants
         torch.cuda.synchronize()
         form = "median" if qs is None else f"qs={qs}"
-        print(f"head check, trained weights, served phi B={phi.shape[0]} {form}: logit std "
+        print(f"head check, trained weights, served phi B={phi.shape[0]} d={phi.shape[1]} "
+              f"{form}: logit std "
               f"{float(logits.std()):.4g}, max |logit| {float(logits.abs().max()):.4g}; probs "
               f"max|kernel-plain| {max_err(torch, probs, p_ref):.3g}, |kernel-fp64| "
               f"{max_err(torch, probs, p64):.3g}, |plain-fp64| {max_err(torch, p_ref, p64):.3g}; "
@@ -297,6 +433,8 @@ def head_checks(torch, prod_head, pred, phi) -> None:
         check(torch.allclose(quants, q_ref, rtol=1e-4, atol=1e-3),
               f"prod_head quantiles, trained weights, {form}: max err "
               f"{max_err(torch, quants, q_ref)}")
+    if not sweep:
+        return
 
     g = torch.Generator(device=dev).manual_seed(3)
     B, d, hidden, K = 40, 4096, 512, 64
@@ -336,14 +474,17 @@ def device_profile(torch, fn, label: str, top: int = 6) -> None:
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end)
-    kernels = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    kernels = {e.key: e.device_time_total / 1e3 for e in events}
+    n_launch = sum(e.count for e in events)
     busy = sum(kernels.values())
     if not busy:
         print(f"profile {label}: device time not measured (no kernel events)")
         return
     print(f"profile {label}: wall {wall_ms:.2f} ms under the profiler, device busy "
-          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), {len(kernels)} kernel names")
+          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), {len(kernels)} kernel names, "
+          f"{n_launch} kernel launches ({1e3 * wall_ms / n_launch:.1f} us of wall each)")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {100 * ms / busy:5.1f}%  {ms:8.3f} ms  {name[:90]}")
 
@@ -378,6 +519,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.prod_head import prod_head_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
@@ -391,30 +533,38 @@ def main() -> int:
     print(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         for line in Path(f"{lib}.log").read_text().splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "Function properties" in line:
                 print(f"  {lib.name.split('-')[0]}: {line.strip()}")
 
     kernels = {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
-               "decode_attention": decode_attention_cuda}
+               "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
     rows = kernel_checks(torch, ref, kernels)
-    launches = serve(torch, kernels)
+    by_phase = {}
+    for i, (name, r, on_path) in enumerate(SERVE_PHASES):
+        by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0))
+        torch.cuda.empty_cache()
 
     sources = {"prod_head": ("src/repro_torch/kernels/csrc/prod_head.cu",
                              "src/repro/kernels/prod_head.py:61"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:69"),
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:64")}
+                                    "src/repro/kernels/decode_attention.py:64"),
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:61")}
     report = []
     for r in rows:
         if any(k["name"] == r["name"] for k in report):
             continue             # one entry per kernel: its first (serving) shape
         src, replaces = sources[r["name"]]
-        report.append({"name": r["name"], "route": "cuda", "source": src, "replaces": replaces,
-                       "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],
-                       "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        n = r["name"]
+        report.append({"name": n, "route": "cuda", "source": src, "replaces": replaces,
+                       "launches": sum(ph[n] for ph in by_phase.values()),
+                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                       "shape": r["shape"]})
+                       "shape": r["shape"],
+                       "launches_by_phase": {p: ph[n] for p, ph in by_phase.items()}})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -31,6 +31,15 @@ class ModelConfig:
     use_mrope: bool = False
     qk_norm: bool = False
 
+    # --- SSM (mamba2 / zamba2) ----------------------------------------------
+    ssm_state: int = 0               # d_state N
+    ssm_heads: int = 0               # number of SSD heads (0 -> derived)
+    ssm_head_dim: int = 64           # P
+    ssm_chunk: int = 256             # kept to match the reference's config;
+                                     # never read: the scan picks its own chunk
+    ssm_conv_width: int = 4
+    attn_every: int = 0              # hybrid: apply shared attn block every k ssm layers
+
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     act: str = "silu"
@@ -44,13 +53,19 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
-        if self.n_heads % max(self.n_kv_heads, 1):
+        if self.n_heads % max(self.n_kv_heads, 1) and self.family != "ssm":
             raise ValueError(f"{self.name}: n_heads={self.n_heads} not "
                              f"divisible by kv={self.n_kv_heads}")
 
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
+
+    @property
+    def ssm_n_heads(self) -> int:
+        if self.ssm_heads:
+            return self.ssm_heads
+        return (2 * self.d_model) // self.ssm_head_dim  # mamba2 default d_inner=2*d
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

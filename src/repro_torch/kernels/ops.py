@@ -18,6 +18,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.prod_head import prod_head_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -41,6 +42,15 @@ def decode_attention(q, k, v, lengths):
     if _on_cuda(q):
         return decode_attention_cuda(q, k, v, lengths)
     return ref.decode_attention_ref(q, k, v, lengths)
+
+
+def ssd_scan(x, dt, a, Bm, Cm):
+    """Chunked SSD scan: (y (B, S, H, P) in x's dtype, h (B, H, P, N) fp32).
+    The reference's ``chunk`` is gone: the kernel picks its own and masks a
+    ragged last chunk itself, so no padded copies are made."""
+    if _on_cuda(x):
+        return ssd_scan_cuda(x, dt, a, Bm, Cm)
+    return ref.ssd_scan_ref(x, dt, a, Bm, Cm)
 
 
 def prod_head(phi, w1, b1, w2, b2, edges, *, qs=None):

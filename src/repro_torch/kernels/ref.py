@@ -2,8 +2,7 @@
 
 Line for line with ``repro/kernels/ref.py``. The CPU tests hold these against
 the JAX oracles; ``chip_smoke.py`` holds each CUDA kernel against them on the
-card; ``ops`` runs them for tensors that lie on the CPU. ``ssd_scan_ref``
-waits for the SSM slice.
+card; ``ops`` runs them for tensors that lie on the CPU.
 
 One addition: ``flash_attention_ref`` takes ``kv_lengths`` (B,), the valid
 key prefix of each row, which is how the port's prefill passes the reference
@@ -70,6 +69,32 @@ def decode_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p, v.to(torch.float32))
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H) fp32
+    a: torch.Tensor,    # (B, S, H) fp32 log-decay
+    Bm: torch.Tensor,   # (B, S, N)
+    Cm: torch.Tensor,   # (B, S, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence. Returns (y (B,S,H,P), h (B,H,P,N))."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+
+    def step(h, xt, dtt, at, Bt, Ct):
+        h = torch.exp(at)[:, :, None, None] * h + torch.einsum(
+            "bh,bhp,bn->bhpn", dtt, xt, Bt)
+        return h, torch.einsum("bhpn,bn->bhp", h, Ct)
+
+    h = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+    xs = (x.to(f32), dt.to(f32), a.to(f32), Bm.to(f32), Cm.to(f32))
+    ys = []
+    for t in range(S):
+        h, yt = step(h, *(v[:, t] for v in xs))
+        ys.append(yt)
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 def prod_head_ref(

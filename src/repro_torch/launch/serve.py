@@ -67,7 +67,8 @@ def fit_and_predict(lens: np.ndarray, phi: np.ndarray, n_bins: int, seed: int = 
 
 def serving_config(name: str) -> ModelConfig:
     """The config ``--mode real`` serves: the model's own dtype (bf16 for
-    Llama-3-8B), except tiny-lm, which the reference serves in fp32."""
+    Llama-3-8B, Zamba2-1.2B and Mamba2-130M), except tiny-lm, which the
+    reference serves in fp32."""
     cfg = get_config(name)
     return cfg.with_overrides(dtype="float32") if cfg.name == "tiny-lm" else cfg
 

@@ -62,9 +62,12 @@ def prefix_lengths(valid: torch.Tensor) -> torch.Tensor:
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: int = 0,
                       kv_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal prefill attention, (B, S, H, hd)."""
-    return ops.flash_attention(q, k, v, causal=True, kv_lengths=kv_lengths)
+    """Causal prefill attention, (B, S, H, hd); ``window`` > 0 limits each
+    query to the last ``window`` keys."""
+    return ops.flash_attention(q, k, v, causal=True, window=window,
+                               kv_lengths=kv_lengths)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

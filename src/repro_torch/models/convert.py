@@ -2,10 +2,12 @@
 
 The input is a tree of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)`` on the JAX side), so the port never imports JAX. The reference
-stacks the layers of each segment on a leading ``layers`` axis
+stacks the blocks of each segment on a leading ``layers`` axis
 (``repro/models/transformer.py:119-132``) under ``segments[i]["layer_j"]``;
-the port keeps one dict per layer, in execution order. Tensor layouts are the
-reference's (``wq`` is (d, H, hd), ``wo`` is (H, hd, d)).
+the port keeps one dict per layer, in execution order (block by block, each
+block's layers in turn). A hybrid's ``shared_attn`` layers are empty dicts in
+both trees, and the weight-shared block is carried as ``shared``. Tensor
+layouts are the reference's (``wq`` is (d, H, hd), ``wo`` is (H, hd, d)).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.models.transformer import layer_kinds
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -48,13 +51,18 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
     layers: List[Dict[str, Any]] = []
     for seg in tree["segments"]:
         names = sorted(seg, key=lambda s: int(s.split("_")[1]))
-        n_blocks = np.asarray(seg[names[0]]["ln1"]).shape[0]
+        # a shared_attn layer is an empty dict: count blocks on another
+        n_blocks = next(np.asarray(seg[n]["ln1"]).shape[0] for n in names if seg[n])
         for i in range(n_blocks):
             for name in names:
                 layers.append(_map(seg[name], lambda a: conv(np.asarray(a)[i])))
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"tree holds {len(layers)} layers, config {cfg.n_layers}")
+    kinds = layer_kinds(cfg)
+    if [not lp for lp in layers] != [k == "shared_attn" for k in kinds]:
+        raise ValueError(f"tree's layers do not follow {cfg.name}'s plan "
+                         f"({len(layers)} layers, plan {len(kinds)})")
     out["layers"] = layers
+    if "shared" in tree:
+        out["shared"] = _map(tree["shared"], conv)
     return out
 
 

@@ -3,8 +3,9 @@
 A model is described once as a tree of :class:`ParamSpec` leaves (shape +
 initialiser), as in ``repro.models.layers``; ``init_tree`` materialises it
 from a seeded ``torch.Generator`` with the reference's scales: normal with
-std 1/sqrt(fan_in), fan_in = ``shape[-2]`` (the last dim for vectors);
-embeddings normal with std 0.02; norm scales zero. The draws differ from
+std 1/sqrt(fan_in), fan_in = ``shape[-2]`` (the last dim for vectors), or
+an explicit ``scale``; embeddings normal with std 0.02; norm scales zero;
+``ones`` for the SSM's skip ``D``. The draws differ from
 ``jax.random``'s, so parity tests carry the reference's weights across
 (``models/convert.py``).
 """
@@ -22,7 +23,8 @@ import torch.nn.functional as F
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"        # normal | zeros | embed
+    init: str = "normal"        # normal | zeros | ones | embed
+    scale: Optional[float] = None  # None -> 1/sqrt(fan_in) for "normal"
 
 
 def init_tree(spec: Any, generator: torch.Generator, dtype: torch.dtype,
@@ -34,8 +36,12 @@ def init_tree(spec: Any, generator: torch.Generator, dtype: torch.dtype,
         return [init_tree(v, generator, dtype, device) for v in spec]
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
     if spec.init == "embed":
         scale = 0.02
+    elif spec.scale is not None:
+        scale = spec.scale
     else:
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         scale = 1.0 / np.sqrt(max(fan_in, 1))

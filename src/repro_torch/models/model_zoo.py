@@ -46,13 +46,14 @@ class Model:
 
     def prefill(self, params, tokens: torch.Tensor,
                 attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all"):
-        """Returns (logits, hidden (B, S, d), per-layer [(k, v)])."""
+        """Returns (logits, hidden (B, S, d), the per-layer cache: (k, v) for
+        attention layers, {"h", "conv"} for SSM layers)."""
         return transformer.forward(params, self.cfg, tokens, attn_valid=attn_valid,
                                    logits_mode=logits_mode)
 
     def decode_step(self, params, tokens, cache, pos, lengths):
-        """tokens, pos (B,), lengths (B,) int32. Returns (logits, hidden) and
-        writes the new K/V into ``cache``."""
+        """tokens, pos (B,), lengths (B,) int32. Returns (logits, hidden),
+        writes the new K/V into ``cache`` and replaces its SSM states."""
         return transformer.decode_step(params, self.cfg, tokens, cache, pos, lengths)
 
     def unembed(self, params, hidden: torch.Tensor) -> torch.Tensor:
@@ -61,6 +62,11 @@ class Model:
     def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None):
         return transformer.init_cache(self.cfg, batch, cache_len, self.dtype,
                                       resolve_device(device))
+
+    def decode_cache(self, prefill_cache, cache_len: int):
+        """The cache ``prefill`` returned, grown to ``cache_len`` positions
+        for decode (raises where the shared block's window is outgrown)."""
+        return transformer.decode_cache(self.cfg, prefill_cache, cache_len)
 
 
 def build_model(cfg: ModelConfig) -> Model:

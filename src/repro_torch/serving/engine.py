@@ -3,8 +3,9 @@
 :class:`RealEngine` prefills right-padded prompts once, takes φ — the
 last-layer hidden state of the last prompt token — for the ProD predictor,
 then decodes until every row has sampled EOS or ``max_new`` tokens. Prefill
-attention runs the flash kernel and every decode step the split-KV kernel
-(``kernels/``), on the device the parameters live on.
+attention runs the flash kernel, prefill SSM layers the SSD scan kernel, and
+every decode step's attention the split-KV kernel (``kernels/``), on the
+device the parameters live on.
 
 Sampling is temperature sampling through the Gumbel-max trick with a seeded
 ``torch.Generator`` on that device. ``jax.random`` draws other numbers from
@@ -53,19 +54,17 @@ class RealEngine:
         tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
         lens = torch.as_tensor(prompt_lens, dtype=torch.int32, device=dev)
         valid = torch.arange(Sp, device=dev)[None, :] < lens[:, None]
-        _, hidden, kv = self.model.prefill(self.params, tokens, attn_valid=valid,
-                                           logits_mode="none")
+        _, hidden, prefill_cache = self.model.prefill(self.params, tokens, attn_valid=valid,
+                                                      logits_mode="none")
         last = last_token_hidden(hidden, lens)
         phi = last.float().cpu().numpy() if collect_hidden else None
         # the reference unembeds every position and gathers the last one;
         # unembedding the gathered row gives the same logits
         cur_logits = self.model.unembed(self.params, last)
 
-        cache = self.model.init_cache(B, Sp + self.max_new, device=dev)
-        for (kc, vc), (k, v) in zip(cache, kv):
-            kc[:, :Sp] = k
-            vc[:, :Sp] = v
-        del kv
+        # K/V grown to Sp + max_new positions; SSM states carried over
+        cache = self.model.decode_cache(prefill_cache, Sp + self.max_new)
+        del prefill_cache
 
         lengths = lens.clone()
         finished = torch.zeros(B, dtype=torch.bool, device=dev)

@@ -4,6 +4,8 @@ Inputs are made with numpy from a seed and handed to both packages; outputs
 come back as numpy and are compared at a stated tolerance.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -29,3 +31,11 @@ def to_np(x):
 def close(a, b, rtol, atol):
     np.testing.assert_allclose(to_np(a), to_np(b), rtol=rtol, atol=atol)
 
+
+def port_config(jcfg):
+    """The port's ModelConfig with the fields of a reference config (e.g. a
+    ``reduced()`` one, which the port has no method for)."""
+    from repro_torch.common.config import ModelConfig
+
+    return ModelConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})

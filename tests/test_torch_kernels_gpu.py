@@ -2,7 +2,8 @@
 (marked ``gpu``; each test skips without CUDA). Tolerances as in
 tests/test_kernels.py: fp32 2e-5, bf16 2e-2 (both sides compute in fp32 and
 round the output once), prod_head probs 1e-5/1e-6 and quantiles 1e-4/1e-3
-(the kernel sums in another order).
+(the kernel sums in another order), ssd_scan's fp32 state (and fp32 y) at
+the reference's SSD tolerance 2e-4 (chunked against sequential decays).
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed:
@@ -111,6 +112,49 @@ def test_prod_head_kernel_large_logits_vs_fp64(c):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (2, 1, 4, 64, 64),        # one step
+    (2, 509, 64, 64, 64),     # Zamba2's widths, ragged last chunk
+    (1, 128, 24, 64, 128),    # Mamba2-130M's widths, S a multiple of the chunk
+    (2, 300, 24, 64, 128),    # Mamba2-130M's widths, ragged last chunk
+    (3, 77, 8, 64, 128),
+])
+@pytest.mark.parametrize("decay", [1.0, 0.01], ids=["fast-decay", "slow-decay"])
+def test_ssd_scan_kernel_vs_plain(dtype, B, S, H, P, N, decay):
+    """``decay`` scales a = -dt. At 1 the decay over a chunk of 64 steps is
+    about e^-50, so exp(cum_i) hides the carried state after a few rows of
+    each chunk; at 0.01 it is about e^-0.5 and the state is most of y."""
+    dev = cuda_device()
+    rng = np.random.default_rng(7)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+    a = -decay * dt * np.exp(0.3 * rng.standard_normal(H))
+    f32 = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)
+    io = lambda shape: f32(rng.standard_normal(shape)).to(TDT[dtype])
+    args = (io((B, S, H, P)), f32(dt), f32(a), io((B, S, N)), io((B, S, N)))
+    y, h = ops.ssd_scan(*args)
+    y_want, h_want = ref.ssd_scan_ref(*args)
+    assert y.dtype == TDT[dtype] and h.dtype == torch.float32
+    y_tol = dict(rtol=2e-2, atol=2e-2) if dtype == BF16 else dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y.float(), y_want.float(), **y_tol)
+    torch.testing.assert_close(h, h_want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_rejects_what_it_does_not_take():
+    dev = cuda_device()
+    x = torch.zeros(1, 8, 2, 64, device=dev)
+    dt = torch.zeros(1, 8, 2, device=dev)
+    Bm = torch.zeros(1, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, dt, Bm, Bm)
+    with pytest.raises(RuntimeError, match="P=48, N=64"):
+        ops.ssd_scan(x[..., :48].contiguous(), dt, dt, Bm, Bm)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt, dt, Bm.bfloat16(), Bm.bfloat16())
+
+
+@pytest.mark.gpu
 def test_kernels_count_their_launches():
     from repro_torch.kernels.decode_attention import decode_attention_cuda
 
@@ -119,3 +163,12 @@ def test_kernels_count_their_launches():
     before = decode_attention_cuda.launches
     ops.decode_attention(q, k, v, torch.tensor([40, 3], dtype=torch.int32, device=dev))
     assert decode_attention_cuda.launches == before + 1
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    x = torch.zeros(1, 3, 2, 64, device=dev)
+    dt = torch.zeros(1, 3, 2, device=dev)
+    Bm = torch.zeros(1, 3, 64, device=dev)
+    before = ssd_scan_cuda.launches
+    ops.ssd_scan(x, dt, dt, Bm, Bm)
+    assert ssd_scan_cuda.launches == before + 1

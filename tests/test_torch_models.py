@@ -55,7 +55,7 @@ def _prompts():
     return np.where(valid, toks, 0), valid
 
 
-@pytest.mark.parametrize("name", ["tiny-lm", "llama3-8b"])
+@pytest.mark.parametrize("name", ["tiny-lm", "llama3-8b", "mamba2-130m", "zamba2-1.2b"])
 def test_configs_are_copies_of_the_reference(name):
     mine, theirs = get_config(name), jget_config(name)
     for f in dataclasses.fields(mine):

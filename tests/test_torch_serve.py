@@ -129,6 +129,8 @@ def test_repeated_sampling_and_launcher_on_cpu():
     assert (out["quantiles"][:, 1] >= out["quantiles"][:, 0] - 1e-4).all()
 
 
-@pytest.mark.parametrize("name,dtype", [("tiny-lm", "float32"), ("llama3-8b", "bfloat16")])
+@pytest.mark.parametrize("name,dtype", [("tiny-lm", "float32"), ("llama3-8b", "bfloat16"),
+                                        ("zamba2-1.2b", "bfloat16"),
+                                        ("mamba2-130m", "bfloat16")])
 def test_launcher_serves_each_model_in_its_dtype(name, dtype):
     assert serve.serving_config(name).dtype == dtype
