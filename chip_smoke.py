@@ -11,10 +11,15 @@ script exits non-zero without its result line:
 2. build: ``nvcc`` builds every kernel of ``src/repro_torch/kernels/csrc``, in
    parallel, timed;
 3. kernels: each CUDA kernel against its plain PyTorch version at the serving
-   shapes, with the stated tolerance, timed with CUDA events beside the plain
-   version, one PyTorch library call as a yardstick where one computes the
-   same function (timed only, never used by the port) and the least time the
-   card could take (``bound_ms``);
+   shapes, with the stated tolerance, timed beside the plain version, one
+   PyTorch library call as a yardstick where one computes the same function
+   (timed only, never used by the port) and the least time the card could
+   take (``bound_ms``), with the achieved rate and its share of the bound.
+   ``ms`` and ``library_ms`` are eager calls from Python, as the serve path
+   makes them (``time_ms``: the host's launch work counts where it is slower
+   than the device); ``device_ms`` and ``library_device_ms`` leave the host
+   out (the calls replayed from a CUDA graph, ``device_time_ms``). The head
+   at B=8, d=4096 is also timed with W1 cold (``cold_ms``, both ways);
 4. serve, once per model, each at full width and depth with seeded random
    weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
    (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
@@ -70,6 +75,61 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph(torch, fn, calls: int, warmup: int = 3):
+    """A CUDA graph of ``calls`` calls of ``fn`` (after ``warmup`` eager calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return g
+
+
+def device_time_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed between CUDA events, so the host's launch work
+    (Python, checks, allocation, ctypes) is left out, for a kernel and its
+    library yardstick alike. ``time_ms`` times the same calls launched from
+    Python; where the host is slower than the device, that is host time."""
+    g = _graph(torch, fn, iters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return start.elapsed_time(end) / iters
+
+
+def time_ms_cold(torch, fn, flush, iters: int = 20):
+    """(eager ms, device ms) of one call of ``fn`` with the L2 cache cold:
+    ``flush`` (larger than the 50 MB L2) is written before each call, outside
+    the timed events. Eager: the device is idle when the call is launched
+    from Python, as a server launches the head once per batch, so the host's
+    launch work counts. Device: a one-call CUDA graph is replayed instead."""
+    start = [torch.cuda.Event(enable_timing=True) for _ in range(2 * iters)]
+    end = [torch.cuda.Event(enable_timing=True) for _ in range(2 * iters)]
+    g = _graph(torch, fn, 1)
+    for i in range(2 * iters):
+        flush.add_(1)
+        torch.cuda.synchronize()
+        start[i].record()
+        if i < iters:
+            fn()
+        else:
+            g.replay()
+        end[i].record()
+    torch.cuda.synchronize()
+    del g
+    times = [a.elapsed_time(b) for a, b in zip(start, end)]
+    return sum(times[:iters]) / iters, sum(times[iters:]) / iters
+
+
 def bound(bytes_moved: float, flops: float, peak_flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -102,40 +162,56 @@ def kernel_checks(torch, ref, kernels):
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
-    # --- prod_head: d=4096, hidden=512, K=64, Q=3, fp32 (phi reaches the
-    # head as fp32); tolerance: tests/test_kernels.py's prod_head tolerance
-    # (probs rtol 1e-5/atol 1e-6, quantiles rtol 1e-4/atol 1e-3) — the
-    # kernel sums in another order than cuBLAS' fp32 product.
-    d, hidden, K = 4096, 512, 64
-    w1 = torch.randn(d, hidden, generator=g, device=dev) / d ** 0.5
-    b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
-    w2 = torch.randn(hidden, K, generator=g, device=dev) / hidden ** 0.5
-    b2 = torch.zeros(K, device=dev)
-    edges = torch.linspace(0.0, 600.0, K + 1, device=dev)
+    # --- prod_head: hidden=512, K=64, Q=3, fp32 (phi reaches the head as
+    # fp32) at the served widths d = 4096 (Llama), 2048 (Zamba2) and 768
+    # (Mamba2) with B=8, and at d=4096 with B=512; tolerance:
+    # tests/test_kernels.py's prod_head tolerance (probs rtol 1e-5/atol 1e-6,
+    # quantiles rtol 1e-4/atol 1e-3) — the kernel sums in another order than
+    # cuBLAS' fp32 product. At B=8, d=4096 the head is also timed with W1
+    # cold, as a server meets it once per batch: a 64 MB buffer (more than
+    # the 50 MB L2) is written between launches, outside the timed events.
+    hidden, K = 512, 64
     qs = torch.tensor([0.5, 0.9, 0.99], device=dev)
-    for B in (8, 512):
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for B, d in ((8, 4096), (8, 2048), (8, 768), (512, 4096)):
+        w1 = torch.randn(d, hidden, generator=g, device=dev) / d ** 0.5
+        b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
+        w2 = torch.randn(hidden, K, generator=g, device=dev) / hidden ** 0.5
+        b2 = torch.zeros(K, device=dev)
+        edges = torch.linspace(0.0, 600.0, K + 1, device=dev)
         phi = torch.randn(B, d, generator=g, device=dev)
         args = (phi, w1, b1, w2, b2, edges)
         probs, quants = kernels["prod_head"](*args, qs)
+        again = kernels["prod_head"](*args, qs)
         p_ref, q_ref = ref.prod_head_ref(*args, qs=qs)
         torch.cuda.synchronize()
         check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
-              f"prod_head probs B={B}: max err {max_err(torch, probs, p_ref)}")
+              f"prod_head probs B={B} d={d}: max err {max_err(torch, probs, p_ref)}")
         check(torch.allclose(quants, q_ref, rtol=1e-4, atol=1e-3),
-              f"prod_head quantiles B={B}: max err {max_err(torch, quants, q_ref)}")
-        ms = time_ms(torch, lambda: kernels["prod_head"](*args, qs))
+              f"prod_head quantiles B={B} d={d}: max err {max_err(torch, quants, q_ref)}")
+        check(torch.equal(probs, again[0]) and torch.equal(quants, again[1]),
+              f"prod_head B={B} d={d}: two calls differ")
+        call = lambda: kernels["prod_head"](*args, qs)
+        chain = lambda: torch.softmax(
+            torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1)
+        ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
         plain_ms = time_ms(torch, lambda: ref.prod_head_ref(*args, qs=qs))
-        lib_ms = time_ms(torch, lambda: torch.softmax(
-            torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1))
+        lib_ms, lib_dev_ms = time_ms(torch, chain), device_time_ms(torch, chain)
         nbytes = 4 * (B * d + d * hidden + hidden + hidden * K + K + K + 1 + 3
                       + B * K + B * 3)
         flops = 2 * B * d * hidden + 2 * B * hidden * K
         b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
-        rows.append({"name": "prod_head", "shape": f"B={B} d={d} hidden={hidden} K={K} Q=3 fp32",
-                     "max_abs_err": max(max_err(torch, probs, p_ref),
-                                        max_err(torch, quants, q_ref)),
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms})
+        row = {"name": "prod_head", "shape": f"B={B} d={d} hidden={hidden} K={K} Q=3 fp32",
+               "max_abs_err": max(max_err(torch, probs, p_ref), max_err(torch, quants, q_ref)),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
+               "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
+        if (B, d) == (8, 4096):
+            row["cold_ms"], row["cold_device_ms"] = time_ms_cold(torch, call, flush)
+            row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(
+                torch, chain, flush)
+        rows.append(row)
+    del flush
 
     # --- flash attention at the two prefill shapes of the served models:
     # Llama-3-8B (H=32, KV=8, hd=128) and Zamba2-1.2B's shared block (H=32,
@@ -156,7 +232,7 @@ def kernel_checks(torch, ref, kernels):
         torch.cuda.synchronize()
         check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
               f"flash_attention hd={hd}: max err {max_err(torch, out, want)}")
-        ms = time_ms(torch, call)
+        ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
         plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
             q, k, v, causal=True, window=window, kv_lengths=lens), iters=5)
         G = H // KV
@@ -167,8 +243,8 @@ def kernel_checks(torch, ref, kernels):
         if window:
             allowed = allowed & (pos[:, None] - pos[None, :] < window)
         mask = (allowed[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                       attn_mask=mask))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib_ms, lib_dev_ms = time_ms(torch, sdpa), device_time_ms(torch, sdpa)
         pairs = int(mask.sum())               # (query, key) pairs this run computes
         nbytes = 2 * (2 * B * S * H * hd + 2 * int(lens.long().sum()) * KV * hd) + 4 * B
         flops = 4 * hd * H * pairs
@@ -177,7 +253,9 @@ def kernel_checks(torch, ref, kernels):
                      "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal ragged"
                               + (f" window={window}" if window else ""),
                      "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "bytes": nbytes, "flops": flops,
+                     "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
     # --- decode attention at the two decode shapes: B=8, Sc=576, ragged
     # lengths, bf16, Llama-3-8B's heads and Zamba2's; tolerance 2e-2.
@@ -192,16 +270,17 @@ def kernel_checks(torch, ref, kernels):
         torch.cuda.synchronize()
         check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
               f"decode_attention hd={hd}: max err {max_err(torch, out, want)}")
-        ms = time_ms(torch, lambda: kernels["decode_attention"](qd, kc, vc, dl), iters=50)
+        call = lambda: kernels["decode_attention"](qd, kc, vc, dl)
+        ms, dev_ms = time_ms(torch, call, iters=50), device_time_ms(torch, call, iters=50)
         plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, dl))
         G = H // KV
         qdt = qd[:, :, None]
         kct = kc.repeat_interleave(G, dim=2).transpose(1, 2)
         vct = vc.repeat_interleave(G, dim=2).transpose(1, 2)
         dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qdt, kct, vct,
-                                                                       attn_mask=dmask),
-                         iters=50)
+        sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask)
+        lib_ms, lib_dev_ms = (time_ms(torch, sdpa, iters=50),
+                              device_time_ms(torch, sdpa, iters=50))
         n_keys = int(dl.long().sum())
         nbytes = 2 * (2 * B * H * hd + 2 * n_keys * KV * hd) + 4 * B
         flops = 4 * hd * H * n_keys
@@ -209,7 +288,9 @@ def kernel_checks(torch, ref, kernels):
         rows.append({"name": "decode_attention",
                      "shape": f"B={B} Sc={Sc} H={H} KV={KV} hd={hd} bf16 ragged",
                      "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "bytes": nbytes, "flops": flops,
+                     "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
     # --- ssd_scan: Zamba2's prefill shape (B=8, S=512, H=64, P=64, N=64),
     # Mamba2-130M's (H=24, N=128) and a ragged S=509, bf16 inputs as the
@@ -243,20 +324,38 @@ def kernel_checks(torch, ref, kernels):
               f"ssd_scan y {shape}: max err {max_err(torch, y, y_ref)}")
         check(torch.allclose(h, h_ref, rtol=2e-4, atol=2e-4),
               f"ssd_scan h {shape}: max err {max_err(torch, h, h_ref)}")
-        ms = time_ms(torch, lambda: kernels["ssd_scan"](*args))
+        call = lambda: kernels["ssd_scan"](*args)
+        ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
         plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args), iters=3, warmup=1)
         nbytes = (2 * 2 * B * S * H * P + 2 * 4 * B * S * H + 2 * 2 * B * S * N
                   + 4 * B * H * P * N)
-        b_ms, b_by = bound(nbytes, ssd_scan_flops(B, S, H, P, N), FP32_FLOPS)
+        flops = ssd_scan_flops(B, S, H, P, N)
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
         rows.append({"name": "ssd_scan", "shape": shape,
                      "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, h, h_ref)),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": None, "bytes": nbytes, "flops": flops,
+                     "device_ms": dev_ms, "library_device_ms": None})
     for r in rows:
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        # achieved rates (bytes and operations) and the share of the bound,
+        # of the eager call and of the device time
+        r["rate"] = (f"{r['bytes'] / r['ms'] / 1e9:.2f} TB/s, "
+                     f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
+        r["device_rate"] = (f"{r['bytes'] / r['device_ms'] / 1e9:.2f} TB/s, "
+                            f"{r['flops'] / r['device_ms'] / 1e9:.1f} TFLOP/s")
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["device_bound_share"] = r["bound_ms"] / r["device_ms"]
+        lib = ("none" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} ms)")
+        cold = (f"; W1 cold {r['cold_ms']:.4f} ms (device {r['cold_device_ms']:.4f} ms), "
+                f"library {r['library_cold_ms']:.4f} ms (device "
+                f"{r['library_cold_device_ms']:.4f} ms)" if "cold_ms" in r else "")
         print(f"kernel {r['name']:16s} {r['shape']}: max|err| {r['max_abs_err']:.3g}  "
-              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library {lib}  "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms)  plain "
+              f"{r['plain_ms']:.4f} ms  library {lib}  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['rate']} ({r['device_rate']} device), "
+              f"{100 * r['bound_share']:.1f}% of the bound "
+              f"({100 * r['device_bound_share']:.1f}% device){cold}")
     return rows
 
 
@@ -457,6 +556,10 @@ def head_checks(torch, prod_head, pred, phi, sweep: bool) -> None:
               f"within rtol 1e-5/atol 1e-6 of plain: {ok}")
 
 
+# name fragments of the port's CUDA kernels (csrc/*.cu)
+PORT_KERNELS = ("flash_fwd_", "decode_split", "decode_combine", "ssd_scan_fwd", "prod_head_")
+
+
 def device_profile(torch, fn, label: str, top: int = 6) -> None:
     """Device busy share of one call of ``fn`` and the kernels that take
     most of its device time (torch.profiler, CUDA kernel events only). The
@@ -485,8 +588,11 @@ def device_profile(torch, fn, label: str, top: int = 6) -> None:
     print(f"profile {label}: wall {wall_ms:.2f} ms under the profiler, device busy "
           f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), {len(kernels)} kernel names, "
           f"{n_launch} kernel launches ({1e3 * wall_ms / n_launch:.1f} us of wall each)")
-    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"  {100 * ms / busy:5.1f}%  {ms:8.3f} ms  {name[:90]}")
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
+    for i, (name, ms) in enumerate(ranked):
+        # the top kernels, and every kernel of the port
+        if i < top or any(k in name for k in PORT_KERNELS):
+            print(f"  {100 * ms / busy:5.1f}%  {ms:8.3f} ms  {name[:90]}")
 
 
 def _leaves(tree):
@@ -563,7 +669,12 @@ def main() -> int:
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                       "shape": r["shape"],
+                       "shape": r["shape"], "rate": r["rate"], "bound_share": r["bound_share"],
+                       "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
+                       "device_rate": r["device_rate"],
+                       "device_bound_share": r["device_bound_share"],
+                       **{k: r[k] for k in ("cold_ms", "cold_device_ms", "library_cold_ms",
+                                            "library_cold_device_ms") if k in r},
                        "launches_by_phase": {p: ph[n] for p, ph in by_phase.items()}})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,11 +11,17 @@ rebuilt and an unchanged one is loaded as it is. Builds happen at first use
 (or all at once, in parallel, through :func:`build_all`) into ``build/`` at
 the root of the checkout, which ``.gitignore`` lists. ``nvcc``'s ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside each library as
-``<library>.log``.
+``<library>.log``. The Hopper pieces (TMA, mbarriers, ``wgmma``,
+``setmaxnreg``) are inline PTX in ``csrc/sm90.cuh``, so no CUTLASS or CuTe
+header and no extra include path is needed; the four libraries build in
+about 7 s, in parallel, on the H100 machine (``chip_smoke.py``'s build line).
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises when that is not 0, so a refused launch is never
-silent.
+silent. The libraries are loaded as ``ctypes.PyDLL``: an entry point only
+enqueues launches, so the call keeps the GIL rather than releasing and
+retaking it: host time that counts where a kernel's device time is as short
+as the head's at serving batch.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.PyDLL] = {}
 _FUNCS: Dict[str, object] = {}
 
 
@@ -85,13 +91,13 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> List[Path]:
     return [paths[n] for n in names]
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str) -> ctypes.PyDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         path = build_all([name])[0]
         with _LOCK:
-            lib = _LIBS.get(name) or ctypes.CDLL(str(path))
+            lib = _LIBS.get(name) or ctypes.PyDLL(str(path))
             _LIBS[name] = lib
     return lib
 
@@ -116,19 +122,23 @@ def check(err: int, what: str) -> None:
 
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}    # as in csrc/common.cuh
+_DTYPE_NAMES: Dict[object, str] = {}             # torch dtype -> "float32", ...
 
 
 def require(t, name: str, dtypes=("float32",), shape=None, device=None):
     """Raise unless ``t`` is a contiguous CUDA tensor of an accepted dtype
-    (and of ``shape`` / on ``device`` when given). Returns its dtype code."""
+    (and of ``shape``, a tuple, / on ``device`` when given). Returns its
+    dtype code. It runs on every launch, so it keeps to cheap lookups."""
     if not t.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    dt = str(t.dtype).replace("torch.", "")
+    dt = _DTYPE_NAMES.get(t.dtype)
+    if dt is None:
+        dt = _DTYPE_NAMES.setdefault(t.dtype, str(t.dtype).replace("torch.", ""))
     if dt not in dtypes:
         raise TypeError(f"{name}: dtype {dt} not in {dtypes}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")

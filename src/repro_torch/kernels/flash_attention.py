@@ -3,12 +3,14 @@
 
 Replaces ``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py:69``):
 GQA attention with causal, sliding-window and per-row key-length masks and an
-online softmax in fp32. One block per (64-query tile, head, batch row) loops
-over 32-key tiles staged in shared memory, which takes the place of the TPU
-kernel's sequential KV grid axis; tiles that every row masks are skipped. At
-the serving shape (B=8, S=512, H=32, KV=8, hd=128, bf16) the least time is
-~25 us of bytes against ~17 us of bf16 tensor-core FLOPs; this first version
-runs both products on the CUDA cores in fp32 and is well above that.
+online softmax in fp32. In bf16 it is a Hopper kernel: a block owns 128 query
+rows of one (batch row, head); a producer warp brings Q once and K/V tiles
+with TMA into a 2-stage shared-memory ring, and two consumer warpgroups run
+both products with ``wgmma`` on the tensor cores and the softmax on the
+accumulators in registers. Tiles that every row masks are skipped. fp32
+(tiny-lm only) keeps a SIMT kernel on the CUDA cores. At the serving shape
+(B=8, S=512, H=32, KV=8, hd=128, bf16) the least time is ~24 us of bytes
+against ~16 us of bf16 tensor-core FLOPs (see the source's header).
 
 ``flash_attention_cuda.launches`` counts the calls that launched the kernel.
 """

@@ -3,22 +3,65 @@
 Replaces ``prod_head_pallas`` (``src/repro/kernels/prod_head.py:61``): the
 2-layer MLP (d -> hidden -> K bins), softmax, and the CDF-crossing quantile
 decode with in-bin linear interpolation, for every requested CDF level in one
-call. Bound on the H100 by reading W1 once (8.4 MB fp32 at d=4096,
-hidden=512: ~2.5 us at 3.35 TB/s). The TPU kernel keeps W1 resident in VMEM;
-it does not fit in shared memory, so the CUDA kernel streams it in d-tiles
-with the hidden units split across blocks, and a one-warp-per-row epilogue
-does softmax, cumsum, crossing and interpolation (see the source's header).
+call. Bound on the H100 by reading W1 once at serving batch (8.4 MB fp32 at
+d=4096, hidden=512: ~2.5 us at 3.35 TB/s). The TPU kernel keeps W1 resident
+in VMEM; it does not fit in shared memory, so the CUDA kernel splits phi W1
+over d as well as over hidden, so that every SM reads a slice of W1, into an
+fp32 scratch of partial sums. The splits are summed in a fixed order, then
+relu, W2, softmax, cumsum, crossing and interpolation follow: for B <= 32 in
+the same launch, by the last block of each tile, for larger B in a second
+launch (see the source's header).
+
+The head runs once per served batch and its device time is ~15 us, so the
+host's share of a call matters. The library sizes the scratch and the
+counters; the sizes are asked once per (device, B, d, hidden, K). The scratch
+and the counters are a workspace kept per (device, stream) and grown when a
+call needs more, as cuBLAS keeps its workspace: calls on one stream run in
+order, and every counter is returned to 0 by the block that completes it, so
+the counters are zeroed only when the workspace is made. A call captured into
+a CUDA graph gets a workspace of its own, which the graph keeps: a graph may
+be replayed on any stream. Per call, only the two outputs are allocated.
 
 ``prod_head_cuda.launches`` counts the calls that launched the kernel.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+
+_SIZES: Dict[tuple, Tuple[int, int]] = {}
+_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _sizes(dev: torch.device, B: int, d: int, hidden: int, K: int) -> Tuple[int, int]:
+    """(fp32 scratch floats, int32 counters) of a call, from the library."""
+    key = (dev, B, d, hidden, K)
+    sizes = _SIZES.get(key)
+    if sizes is None:
+        lib = _build.load("prod_head")
+        lib.prod_head_scratch_floats.restype = ctypes.c_longlong
+        with torch.cuda.device(dev):   # the split follows this card's SM count
+            sizes = (lib.prod_head_scratch_floats(B, d, hidden, K),
+                     lib.prod_head_counters(B, d, hidden))
+        _SIZES[key] = sizes
+    return sizes
+
+
+def _workspace(dev: torch.device, stream: int, n_floats: int, n_counters: int):
+    """(fp32 scratch, zeroed int32 counters) for a call on ``stream``."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    ws = None if capturing else _WORKSPACE.get((dev, stream))
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
+        ws = (torch.empty(n_floats, dtype=torch.float32, device=dev),
+              torch.zeros(n_counters, dtype=torch.int32, device=dev))
+        if not capturing:
+            _WORKSPACE[(dev, stream)] = ws
+    return ws
 
 
 def prod_head_cuda(phi: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -46,15 +89,15 @@ def prod_head_cuda(phi: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if qs.ndim != 1:
         raise ValueError("qs must be a vector of CDF levels")
     Q = qs.shape[0]
-    f32 = torch.float32
-    partial = torch.empty((B, hidden // 32, K), dtype=f32, device=dev)
-    probs = torch.empty((B, K), dtype=f32, device=dev)
-    quants = torch.empty((B, Q), dtype=f32, device=dev)
-    fn = _build.entry("prod_head", n_pointers=11, n_ints=6)
+    fn = _build.entry("prod_head", n_pointers=12, n_ints=6)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)   # as Triton's launcher reads it
+    scratch, counters = _workspace(dev, stream, *_sizes(dev, B, d, hidden, K))
+    probs = torch.empty((B, K), dtype=torch.float32, device=dev)
+    quants = torch.empty((B, Q), dtype=torch.float32, device=dev)
     err = fn(phi.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-             b2.data_ptr(), edges.data_ptr(), qs.data_ptr(), partial.data_ptr(),
-             probs.data_ptr(), quants.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream, B, d, hidden, K, Q, code)
+             b2.data_ptr(), edges.data_ptr(), qs.data_ptr(), scratch.data_ptr(),
+             counters.data_ptr(), probs.data_ptr(), quants.data_ptr(), stream,
+             B, d, hidden, K, Q, code)
     _build.check(err, "prod_head")
     prod_head_cuda.launches += 1
     return probs, quants

@@ -59,6 +59,42 @@ def test_flash_attention_kernel_vs_plain(dtype, hd, causal, window):
     close(got, want, dtype)
 
 
+# bf16 cases of the wgmma kernel: (B, S, H, KV, hd, causal, window, key lengths)
+FLASH_BF16_CASES = {
+    # the serving shapes (Llama: 64-key tiles; Zamba2: 128-key tiles) with
+    # ragged lengths: 1, below one tile, and one past a tile boundary
+    "llama-len1": (2, 512, 32, 8, 128, True, 0, [512, 1]),
+    "llama-len37-65": (2, 512, 32, 8, 128, True, 0, [37, 65]),
+    "zamba2-len1": (2, 512, 32, 32, 64, True, 8192, [512, 1]),
+    "zamba2-len100-129": (2, 512, 32, 32, 64, True, 8192, [100, 129]),
+    # ragged query tiles (128 rows a block)
+    "S77": (2, 77, 8, 2, 128, True, 0, None),
+    "S509": (2, 509, 8, 2, 64, True, 0, [509, 300]),
+    # a window inside one tile and across tiles
+    "window17": (2, 300, 8, 2, 128, True, 17, None),
+    "window200": (2, 509, 8, 2, 64, True, 200, None),
+    "non-causal": (2, 300, 8, 2, 128, False, 0, [300, 65]),
+    # GQA group sizes
+    "G1": (2, 256, 8, 8, 64, True, 0, [256, 129]),
+    "G4": (2, 256, 8, 2, 128, True, 0, [256, 129]),
+    "G8": (2, 256, 8, 1, 32, True, 0, [256, 129]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FLASH_BF16_CASES))
+def test_flash_attention_bf16_kernel_vs_plain(case):
+    """Every query row here sees at least one key, so the kernel's 0 for a
+    row with none never enters the comparison."""
+    dev = cuda_device()
+    B, S, H, KV, hd, causal, window, lens = FLASH_BF16_CASES[case]
+    q, k, v = _qkv(8, (B, S, H, hd), (B, S, KV, hd), BF16, dev)
+    lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, kv_lengths=lens)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_lengths=lens)
+    close(got, want, BF16)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("B,Sc,H,KV,hd", [(2, 100, 8, 2, 64), (3, 300, 32, 8, 128),
@@ -71,22 +107,34 @@ def test_decode_attention_kernel_vs_plain(dtype, B, Sc, H, KV, hd):
     close(ops.decode_attention(q, k, v, lens), ref.decode_attention_ref(q, k, v, lens), dtype)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,d,hid,K", [(7, 32, 32, 8), (33, 96, 64, 32), (40, 4096, 512, 64)])
-@pytest.mark.parametrize("qs", [None, QS], ids=["median", "qs"])
-def test_prod_head_kernel_vs_plain(B, d, hid, K, qs):
-    dev = cuda_device()
-    # weights at the head's init scales (core/heads.py: 1/sqrt(fan_in)), so
-    # the logits stay O(1) at d=4096 as they do in serving
+def _head_args(B, d, hid, K, dev):
+    """Head inputs at the head's init scales (core/heads.py: 1/sqrt(fan_in)),
+    so the logits stay O(1) at d=4096 as they do in serving."""
     rng = np.random.default_rng(3)
     arrs = [rng.standard_normal((B, d)), rng.standard_normal((d, hid)) / d ** 0.5,
             rng.standard_normal(hid) * 0.01, rng.standard_normal((hid, K)) / hid ** 0.5,
             np.zeros(K), np.linspace(0.0, 512.0, K + 1)]
-    args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,d,hid,K", [(7, 32, 32, 8), (33, 96, 64, 32), (40, 4096, 512, 64)]
+                         + [(B, d, 512, 64) for B in (1, 8, 17, 512, 513)
+                            for d in (768, 2048, 4096)]
+                         + [(8, 4100, 512, 64), (513, 4100, 512, 64), (8, 96, 512, 64)])
+@pytest.mark.parametrize("qs", [None, QS], ids=["median", "qs"])
+def test_prod_head_kernel_vs_plain(B, d, hid, K, qs):
+    """Small heads, then the served d (Mamba2, Zamba2, Llama) at batches on
+    both sides of the 8-row and 128-row tiles of the hidden stage, and d that
+    is not a multiple of its d-slice. The d-splits are summed in a fixed
+    order, so a second call agrees with the first bit for bit."""
+    args = _head_args(B, d, hid, K, cuda_device())
     p_got, q_got = ops.prod_head(*args, qs=qs)
     p_want, q_want = ref.prod_head_ref(*args, qs=qs)
     torch.testing.assert_close(p_got, p_want, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(q_got, q_want, rtol=1e-4, atol=1e-3)
+    p_again, q_again = ops.prod_head(*args, qs=qs)
+    assert torch.equal(p_got, p_again) and torch.equal(q_got, q_again)
 
 
 @pytest.mark.gpu
