@@ -19,7 +19,13 @@ script exits non-zero without its result line:
    makes them (``time_ms``: the host's launch work counts where it is slower
    than the device); ``device_ms`` and ``library_device_ms`` leave the host
    out (the calls replayed from a CUDA graph, ``device_time_ms``). The head
-   at B=8, d=4096 is also timed with W1 cold (``cold_ms``, both ways);
+   at B=8, d=4096 and the decode attention (with SDPA on the cache as the
+   kernel takes it as its yardstick) are also timed with the L2 cache cold
+   (``cold_ms``, both ways). The decode attention's split plan is printed,
+   and its device time under other splits (``split_sweep``: the library's
+   plan against the others, each output held within one bf16 step of the
+   plain version's); the fp32 scan with no decay is held against an fp64
+   recurrence, beside the plain version's error there;
 4. serve, once per model, each at full width and depth with seeded random
    weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
    (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
@@ -137,7 +143,7 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
 
 
 def ssd_scan_flops(B: int, S: int, H: int, P: int, N: int) -> float:
-    """Least fp32 operations of the SSD scan (an FMA counts 2). The
+    """Least operations of the SSD scan (an FMA counts 2). The
     recurrence h = exp(a) h + (dt x) B^T, y = C h needs 5 P N per (row, step,
     head): a multiply and an FMA per state entry, and an FMA for y. The
     chunked form with chunk Q needs per step, counting only products on or
@@ -148,6 +154,20 @@ def ssd_scan_flops(B: int, S: int, H: int, P: int, N: int) -> float:
     the recurrence's, and is what the bound counts."""
     per_step = min(q * (P + N / H) + 4 * P * N + P * N / q for q in range(1, S + 1))
     return B * S * H * min(5 * P * N, per_step)
+
+
+def ssd_fp64(torch, x, dt, a, Bm, Cm):
+    """y of the SSD recurrence in fp64, step by step: the exact answer the
+    fp32 kernel and the plain version approximate."""
+    x, dt, a, Bm, Cm = (t.double() for t in (x, dt, a, Bm, Cm))
+    h = torch.zeros(x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1], dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        h = torch.exp(a[:, t])[:, :, None, None] * h + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, t], x[:, t], Bm[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t]))
+    return torch.stack(ys, dim=1)
 
 
 def max_err(torch, a, b) -> float:
@@ -258,39 +278,78 @@ def kernel_checks(torch, ref, kernels):
                      "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
     # --- decode attention at the two decode shapes: B=8, Sc=576, ragged
-    # lengths, bf16, Llama-3-8B's heads and Zamba2's; tolerance 2e-2.
+    # lengths, bf16, Llama-3-8B's heads and Zamba2's; tolerance 2e-2. The
+    # yardstick is SDPA on the cache as the kernel takes it (K/V heads
+    # transposed as views, enable_gqa: no copy made outside the call). Timed
+    # L2 warm (the 19-38 MB cache fits the 50 MB L2) and, as the serve path
+    # meets a layer's cache a whole step after its last read, L2 cold.
+    from repro_torch.kernels.decode_attention import plan as decode_plan
+
     Sc = 576
     dl = torch.tensor([576, 301, 258, 540, 400, 575, 267, 449], dtype=torch.int32, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for H, KV, hd in ((32, 8, 128), (32, 32, 64)):
         qd = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
         kc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
         vc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
         out = kernels["decode_attention"](qd, kc, vc, dl)
+        again = kernels["decode_attention"](qd, kc, vc, dl)
         want = ref.decode_attention_ref(qd, kc, vc, dl)
         torch.cuda.synchronize()
         check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
               f"decode_attention hd={hd}: max err {max_err(torch, out, want)}")
+        check(torch.equal(out, again), f"decode_attention hd={hd}: two calls differ")
         call = lambda: kernels["decode_attention"](qd, kc, vc, dl)
         ms, dev_ms = time_ms(torch, call, iters=50), device_time_ms(torch, call, iters=50)
         plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, dl))
-        G = H // KV
-        qdt = qd[:, :, None]
-        kct = kc.repeat_interleave(G, dim=2).transpose(1, 2)
-        vct = vc.repeat_interleave(G, dim=2).transpose(1, 2)
+        qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
         dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
-        sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask)
+        sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask,
+                                                      enable_gqa=True)
+        check(torch.allclose(sdpa()[:, :, 0].float(), want.float(), rtol=2e-2, atol=2e-2),
+              f"SDPA yardstick hd={hd} disagrees with the plain version")
         lib_ms, lib_dev_ms = (time_ms(torch, sdpa, iters=50),
                               device_time_ms(torch, sdpa, iters=50))
         n_keys = int(dl.long().sum())
         nbytes = 2 * (2 * B * H * hd + 2 * n_keys * KV * hd) + 4 * B
         flops = 4 * hd * H * n_keys
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        rows.append({"name": "decode_attention",
-                     "shape": f"B={B} Sc={Sc} H={H} KV={KV} hd={hd} bf16 ragged",
-                     "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                     "bytes": nbytes, "flops": flops,
-                     "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+        row = {"name": "decode_attention",
+               "shape": f"B={B} Sc={Sc} H={H} KV={KV} hd={hd} bf16 ragged",
+               "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "bytes": nbytes, "flops": flops,
+               "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
+        row["cold_ms"], row["cold_device_ms"] = time_ms_cold(torch, call, flush)
+        row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(torch, sdpa, flush)
+        # other splits (head tile, splits, keys a split): device time warm and
+        # cold, and the output against the plain version's: both round an fp32
+        # value to bf16, so they may differ by one bf16 step (give or take
+        # 2e-6 of fp32 error near 0), by no more
+        row["plan"] = list(decode_plan(dev, B, Sc, H, KV, hd, bf))
+        row["split_sweep"] = []
+        G = H // KV
+        for p in sorted({tuple(row["plan"])} | {
+                (min(8, 1 << (G - 1).bit_length()), n, c)
+                for n, c in ((1, 576), (2, 320), (3, 192), (5, 128), (6, 96), (9, 64))}):
+            forced = lambda: kernels["decode_attention"](qd, kc, vc, dl, with_plan=p)
+            got = forced()
+            torch.cuda.synchronize()
+            step = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
+            check(bool(((got.float() - want.float()).abs() <= step + 2e-6).all()),
+                  f"decode_attention hd={hd} plan {p}: more than one bf16 step from the "
+                  f"plain version (max|err| {max_err(torch, got, want)})")
+            row["split_sweep"].append({
+                "plan": list(p), "device_ms": device_time_ms(torch, forced, iters=50),
+                "cold_device_ms": time_ms_cold(torch, forced, flush)[1],
+                "max_abs_err": max_err(torch, got, want)})
+        print(f"decode_attention {row['shape']}: plan {row['plan']} (head tile, splits, keys "
+              f"a split); other splits: " + "; ".join(
+                  f"{e['plan']} {e['device_ms']:.4f} ms warm, {e['cold_device_ms']:.4f} cold, "
+                  f"max|err| {e['max_abs_err']:.3g}"
+                  for e in row["split_sweep"]))
+        rows.append(row)
+    del flush
 
     # --- ssd_scan: Zamba2's prefill shape (B=8, S=512, H=64, P=64, N=64),
     # Mamba2-130M's (H=24, N=128) and a ragged S=509, bf16 inputs as the
@@ -301,7 +360,10 @@ def kernel_checks(torch, ref, kernels):
     # from fp32 on both sides), h fp32 at the reference's SSD tolerance 2e-4
     # (tests/test_kernels.py: chunked decays exp(cum_i - cum_j) against the
     # recurrence's product of exp(a_t)). No single PyTorch call computes the
-    # scan: library_ms is null.
+    # scan: library_ms is null. The bf16 kernel's products run on the tensor
+    # cores, so its bound counts them at the bf16 peak (``bound_ms``); the
+    # first version's bound, the same work at the fp32 CUDA-core peak, stands
+    # beside it (``fp32_bound_ms``).
     for B, S, H, P, N, decay in ((8, 512, 64, 64, 64, 1.0), (8, 512, 24, 64, 128, 1.0),
                                  (8, 509, 64, 64, 64, 1.0), (8, 509, 64, 64, 64, 0.01),
                                  (8, 509, 24, 64, 128, 0.01)):
@@ -312,6 +374,7 @@ def kernel_checks(torch, ref, kernels):
         Cm = torch.randn(B, S, N, generator=g, device=dev).to(bf)
         args = (x, dt, a, Bm, Cm)
         y, h = kernels["ssd_scan"](*args)
+        y2, h2 = kernels["ssd_scan"](*args)
         y_ref, h_ref = ref.ssd_scan_ref(*args)
         torch.cuda.synchronize()
         shape = f"B={B} S={S} H={H} P={P} N={N} bf16" + (f" a=-{decay}dt" if decay != 1 else "")
@@ -324,18 +387,53 @@ def kernel_checks(torch, ref, kernels):
               f"ssd_scan y {shape}: max err {max_err(torch, y, y_ref)}")
         check(torch.allclose(h, h_ref, rtol=2e-4, atol=2e-4),
               f"ssd_scan h {shape}: max err {max_err(torch, h, h_ref)}")
+        check(torch.equal(y, y2) and torch.equal(h, h2), f"ssd_scan {shape}: two calls differ")
         call = lambda: kernels["ssd_scan"](*args)
         ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
         plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args), iters=3, warmup=1)
         nbytes = (2 * 2 * B * S * H * P + 2 * 4 * B * S * H + 2 * 2 * B * S * N
                   + 4 * B * H * P * N)
         flops = ssd_scan_flops(B, S, H, P, N)
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
-        rows.append({"name": "ssd_scan", "shape": shape,
-                     "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, h, h_ref)),
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None, "bytes": nbytes, "flops": flops,
-                     "device_ms": dev_ms, "library_device_ms": None})
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        row = {"name": "ssd_scan", "shape": shape,
+               "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, h, h_ref)),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None, "bytes": nbytes, "flops": flops,
+               "device_ms": dev_ms, "library_device_ms": None,
+               "fp32_bound_ms": bound(nbytes, flops, FP32_FLOPS)[0]}
+        rows.append(row)
+
+    # fp32 inputs with no decay (a = 0): the state grows over the whole
+    # sequence and |y| reaches ~900, where two fp32 summation orders differ by
+    # more than 2e-4; y is held against an fp64 recurrence at 2e-4 (h against
+    # the plain version), as tests/test_torch_kernels_gpu.py's
+    # test_ssd_scan_no_decay does, on its inputs (numpy seed 7). Printed: the
+    # kernel's and the plain version's largest error against fp64, and the
+    # largest share of the tolerance the kernel uses.
+    import numpy as np
+
+    for S in (65, 509):
+        B, H, P, N = 2, 64, 64, 64
+        rng = np.random.default_rng(7)    # drawn in the test's order
+        dtn = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+        a = 0.0 * dtn * np.exp(0.3 * rng.standard_normal(H))
+        f32 = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)
+        args = (f32(rng.standard_normal((B, S, H, P))), f32(dtn), f32(a),
+                f32(rng.standard_normal((B, S, N))), f32(rng.standard_normal((B, S, N))))
+        y, h = kernels["ssd_scan"](*args)
+        y_plain, h_plain = ref.ssd_scan_ref(*args)
+        y_exact = ssd_fp64(torch, *args)
+        err = (y.double() - y_exact).abs()
+        share = float((err / (2e-4 + 2e-4 * y_exact.abs())).max())
+        print(f"ssd_scan B={B} S={S} H={H} P={P} N={N} fp32 a=0 against fp64: kernel y "
+              f"max|err| {float(err.max()):.3g}, plain version "
+              f"{float((y_plain.double() - y_exact).abs().max()):.3g} at max|y| "
+              f"{float(y_exact.abs().max()):.4g}; the kernel uses {100 * share:.1f}% of the "
+              f"2e-4 tolerance; h against the plain version {max_err(torch, h, h_plain):.3g}")
+        check(share <= 1.0, f"ssd_scan fp32 a=0 S={S}: y off the fp64 recurrence")
+        check(torch.allclose(h, h_plain, rtol=2e-4, atol=2e-4),
+              f"ssd_scan fp32 a=0 S={S}: h max err {max_err(torch, h, h_plain)}")
+
     for r in rows:
         # achieved rates (bytes and operations) and the share of the bound,
         # of the eager call and of the device time
@@ -345,11 +443,17 @@ def kernel_checks(torch, ref, kernels):
                             f"{r['flops'] / r['device_ms'] / 1e9:.1f} TFLOP/s")
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["device_bound_share"] = r["bound_ms"] / r["device_ms"]
+        if "cold_device_ms" in r:
+            r["cold_device_bound_share"] = r["bound_ms"] / r["cold_device_ms"]
         lib = ("none" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} ms)")
-        cold = (f"; W1 cold {r['cold_ms']:.4f} ms (device {r['cold_device_ms']:.4f} ms), "
+        cold = (f"; L2 cold {r['cold_ms']:.4f} ms (device {r['cold_device_ms']:.4f} ms, "
+                f"{100 * r['bound_ms'] / r['cold_device_ms']:.1f}% of the bound), "
                 f"library {r['library_cold_ms']:.4f} ms (device "
                 f"{r['library_cold_device_ms']:.4f} ms)" if "cold_ms" in r else "")
+        if "fp32_bound_ms" in r:
+            cold += (f"; fp32 CUDA-core bound {r['fp32_bound_ms']:.4f} ms "
+                     f"({100 * r['fp32_bound_ms'] / r['device_ms']:.1f}% device)")
         print(f"kernel {r['name']:16s} {r['shape']}: max|err| {r['max_abs_err']:.3g}  "
               f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms)  plain "
               f"{r['plain_ms']:.4f} ms  library {lib}  bound {r['bound_ms']:.4f} ms "
@@ -557,7 +661,7 @@ def head_checks(torch, prod_head, pred, phi, sweep: bool) -> None:
 
 
 # name fragments of the port's CUDA kernels (csrc/*.cu)
-PORT_KERNELS = ("flash_fwd_", "decode_split", "decode_combine", "ssd_scan_fwd", "prod_head_")
+PORT_KERNELS = ("flash_fwd_", "decode_fwd", "ssd_scan_", "prod_head_")
 
 
 def device_profile(torch, fn, label: str, top: int = 6) -> None:
@@ -674,7 +778,9 @@ def main() -> int:
                        "device_rate": r["device_rate"],
                        "device_bound_share": r["device_bound_share"],
                        **{k: r[k] for k in ("cold_ms", "cold_device_ms", "library_cold_ms",
-                                            "library_cold_device_ms") if k in r},
+                                            "library_cold_device_ms", "cold_device_bound_share",
+                                            "fp32_bound_ms", "plan", "split_sweep")
+                          if k in r},
                        "launches_by_phase": {p: ph[n] for p, ph in by_phase.items()}})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

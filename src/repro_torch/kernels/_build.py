@@ -33,7 +33,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -44,6 +46,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.PyDLL] = {}
 _FUNCS: Dict[str, object] = {}
+_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _nvcc() -> str:
@@ -143,3 +146,23 @@ def require(t, name: str, dtypes=("float32",), shape=None, device=None):
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     return DTYPE_CODES.get(dt, -1)
+
+
+def workspace(kernel: str, dev: torch.device, stream: int, n_floats: int,
+              n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(fp32 scratch, int32 counters) of ``kernel`` for a call on ``stream``,
+    kept per (kernel, device, stream) and grown when a call needs more, as
+    cuBLAS keeps its workspace: calls on one stream run in order. The
+    counters are zeroed when they are made; the kernels set every counter
+    they complete back to 0. A call captured into a CUDA graph gets a
+    workspace of its own, which the graph keeps: a graph may be replayed on
+    any stream."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    key = (kernel, dev, stream)
+    ws = None if capturing else _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
+        ws = (torch.empty(max(n_floats, 1), dtype=torch.float32, device=dev),
+              torch.zeros(max(n_counters, 1), dtype=torch.int32, device=dev))
+        if not capturing:
+            _WORKSPACE[key] = ws
+    return ws

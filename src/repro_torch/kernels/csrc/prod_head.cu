@@ -48,8 +48,6 @@
 // against an fp64 head at or below that of cuBLAS' fp32 product.
 #include <stdint.h>
 
-#include <atomic>
-
 #include "common.cuh"
 
 using namespace repro;
@@ -63,7 +61,6 @@ constexpr int kRB = 4;                // rows per block of prod_head_epilogue
 constexpr int kSmallB = 32;           // up to here, tiles of 8 rows
 constexpr int kDefaultSmem = 48 << 10;  // dynamic shared memory a launch gets unasked
 
-__host__ __device__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 int round_up(int a, int b) { return ceil_div(a, b) * b; }
 
 struct Plan {
@@ -71,17 +68,6 @@ struct Plan {
   int row_tiles, col_tiles;
   int n_splits, ds;            // d-splits and the d-rows of each
 };
-
-// Multiprocessors of the current device, read once per device.
-int sm_count() {
-  static std::atomic<int> counts[64];
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
-  n = counts[dev].load(std::memory_order_relaxed);
-  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
-    counts[dev].store(n, std::memory_order_relaxed);
-  return n > 0 ? n : 1;  // a failed query is reported by the launch's cudaGetLastError
-}
 
 Plan plan(int B, int d, int hidden) {
   Plan p;

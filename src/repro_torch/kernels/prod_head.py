@@ -35,7 +35,6 @@ import torch
 from repro_torch.kernels import _build
 
 _SIZES: Dict[tuple, Tuple[int, int]] = {}
-_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _sizes(dev: torch.device, B: int, d: int, hidden: int, K: int) -> Tuple[int, int]:
@@ -50,18 +49,6 @@ def _sizes(dev: torch.device, B: int, d: int, hidden: int, K: int) -> Tuple[int,
                      lib.prod_head_counters(B, d, hidden))
         _SIZES[key] = sizes
     return sizes
-
-
-def _workspace(dev: torch.device, stream: int, n_floats: int, n_counters: int):
-    """(fp32 scratch, zeroed int32 counters) for a call on ``stream``."""
-    capturing = torch.cuda.is_current_stream_capturing()
-    ws = None if capturing else _WORKSPACE.get((dev, stream))
-    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
-        ws = (torch.empty(n_floats, dtype=torch.float32, device=dev),
-              torch.zeros(n_counters, dtype=torch.int32, device=dev))
-        if not capturing:
-            _WORKSPACE[(dev, stream)] = ws
-    return ws
 
 
 def prod_head_cuda(phi: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -91,7 +78,7 @@ def prod_head_cuda(phi: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     Q = qs.shape[0]
     fn = _build.entry("prod_head", n_pointers=12, n_ints=6)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)   # as Triton's launcher reads it
-    scratch, counters = _workspace(dev, stream, *_sizes(dev, B, d, hidden, K))
+    scratch, counters = _build.workspace("prod_head", dev, stream, *_sizes(dev, B, d, hidden, K))
     probs = torch.empty((B, K), dtype=torch.float32, device=dev)
     quants = torch.empty((B, Q), dtype=torch.float32, device=dev)
     err = fn(phi.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),

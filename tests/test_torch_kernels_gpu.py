@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 F32, BF16 = "float32", "bfloat16"
@@ -95,6 +96,14 @@ def test_flash_attention_bf16_kernel_vs_plain(case):
     close(got, want, BF16)
 
 
+def _check_decode(q, k, v, lens, dtype):
+    """The kernel against its plain version, and a second call bit-identical
+    (the splits are combined in a fixed order)."""
+    got = ops.decode_attention(q, k, v, lens)
+    close(got, ref.decode_attention_ref(q, k, v, lens), dtype)
+    assert torch.equal(got, ops.decode_attention(q, k, v, lens))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("B,Sc,H,KV,hd", [(2, 100, 8, 2, 64), (3, 300, 32, 8, 128),
@@ -103,8 +112,143 @@ def test_decode_attention_kernel_vs_plain(dtype, B, Sc, H, KV, hd):
     dev = cuda_device()
     q, k, v = _qkv(5, (B, H, hd), (B, Sc, KV, hd), dtype, dev)
     lens = torch.from_numpy(np.random.default_rng(1).integers(1, Sc + 1, B).astype(np.int32))
-    lens = lens.to(dev)
-    close(ops.decode_attention(q, k, v, lens), ref.decode_attention_ref(q, k, v, lens), dtype)
+    _check_decode(q, k, v, lens.to(dev), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+def test_decode_attention_group_sizes(dtype, hd, G):
+    """Query heads per KV head 1 (one head a block), 4 and 8 (one head tile)
+    and 16 (two tiles); lengths of one key, of the whole cache and between;
+    Sc = 301 is a multiple of no key pass."""
+    dev = cuda_device()
+    B, KV, Sc = 3, 2, 301
+    q, k, v = _qkv(9, (B, G * KV, hd), (B, Sc, KV, hd), dtype, dev)
+    _check_decode(q, k, v, torch.tensor([Sc, 1, 157], dtype=torch.int32, device=dev), dtype)
+
+
+SERVE_LENS = [576, 301, 258, 540, 400, 575, 267, 449]   # chip_smoke.py's decode lengths
+# bf16 cases: (B, Sc, H, KV, hd, lengths)
+DECODE_CASES = {
+    "llama-serve": (8, 576, 32, 8, 128, SERVE_LENS),       # the two decode shapes served
+    "zamba2-serve": (8, 576, 32, 32, 64, SERVE_LENS),
+    "Sc77": (3, 77, 8, 2, 64, [77, 1, 40]),                # below one pass of keys
+    "G3": (2, 100, 6, 2, 64, [100, 33]),                   # a head tile of 4 holding 3
+    "long-G16": (2, 8192, 16, 1, 128, [8192, 5000]),       # many splits a row
+    "long-G4": (1, 8192, 32, 8, 128, [7777]),
+    "long-G1": (2, 8192, 8, 8, 64, [8192, 1]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_attention_bf16_cases(case):
+    dev = cuda_device()
+    B, Sc, H, KV, hd, lens = DECODE_CASES[case]
+    q, k, v = _qkv(10, (B, H, hd), (B, Sc, KV, hd), BF16, dev)
+    _check_decode(q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev), BF16)
+
+
+@pytest.mark.gpu
+def test_decode_attention_row_without_keys_is_zero():
+    dev = cuda_device()
+    q, k, v = _qkv(11, (2, 8, 64), (2, 100, 2, 64), BF16, dev)
+    out = ops.decode_attention(q, k, v, torch.tensor([0, 100], dtype=torch.int32, device=dev))
+    assert not out[0].any()
+    close(out[1:], ref.decode_attention_ref(q[1:], k[1:], v[1:], torch.tensor(
+        [100], dtype=torch.int32, device=dev)), BF16)
+
+
+@pytest.mark.gpu
+def test_decode_attention_in_cuda_graph():
+    """A call captured into a CUDA graph (with a workspace of its own) and
+    replayed on new contents of its inputs gives what an eager call gives."""
+    dev = cuda_device()
+    q, k, v = _qkv(12, (8, 32, 128), (8, 576, 8, 128), BF16, dev)
+    lens = torch.tensor(SERVE_LENS, dtype=torch.int32, device=dev)
+    ops.decode_attention(q, k, v, lens)        # build, and the eager workspace
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, lens)
+    for seed in (13, 14):
+        q2, k2, v2 = _qkv(seed, (8, 32, 128), (8, 576, 8, 128), BF16, dev)
+        q.copy_(q2)
+        k.copy_(k2)
+        v.copy_(v2)
+        lens.copy_(torch.flip(lens, (0,)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.decode_attention(q, k, v, lens))
+        close(out, ref.decode_attention_ref(q, k, v, lens), BF16)
+
+
+# (B, Sc, H, KV, hd, dtype) of the plan cases
+PLAN_CASES = [
+    (8, 576, 32, 8, 128, BF16), (8, 576, 32, 32, 64, BF16),     # the served decode shapes
+    (1, 8192, 16, 1, 128, BF16), (1, 8192, 32, 8, 128, BF16), (2, 8192, 8, 8, 64, BF16),
+    (3, 301, 8, 2, 128, F32), (3, 301, 24, 2, 128, F32), (1, 40, 4, 4, 32, F32),
+    (2, 100, 6, 2, 64, BF16),
+    (64, 1, 32, 8, 128, BF16), (1, 1_000_000, 1, 1, 32, BF16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sc,H,KV,hd,dtype", PLAN_CASES)
+def test_decode_attention_plan_covers_the_cache(B, Sc, H, KV, hd, dtype):
+    """The library's split, from the shapes and this card's SM count alone:
+    a head tile of G rounded up to a power of two (at most 8), splits that
+    cover every key once (at most 128), and a block on every SM unless the
+    splits are already one pass of keys or the 128-split cap makes them
+    longer."""
+    dev = cuda_device()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = H // KV
+    gt, n, chunk = da.plan(dev, B, Sc, H, KV, hd, TDT[dtype])
+    assert gt == min(8, 1 << (G - 1).bit_length())
+    assert 1 <= n <= 128 and (n - 1) * chunk < Sc <= n * chunk
+    step = 128 // (hd // 8) * (4 if dtype == BF16 else 2)   # key rows a block's pass
+    assert chunk % step == 0
+    assert n * B * KV * -(-G // gt) >= n_sms or chunk == step or -(-Sc // 128) > step
+
+
+@pytest.mark.gpu
+def test_decode_attention_plan_at_the_served_shapes():
+    """On the H100 (132 SMs): Llama-3-8B (G=4, hd=128) 6 splits of 96 keys,
+    384 blocks; Zamba2 (G=1, hd=64) 3 splits of 192 keys, 768 blocks."""
+    dev = cuda_device()
+    if torch.cuda.get_device_properties(dev).multi_processor_count != 132:
+        pytest.skip("the planned splits follow the SM count; these are the H100's")
+    assert da.plan(dev, 8, 576, 32, 8, 128, torch.bfloat16) == (4, 6, 96)
+    assert da.plan(dev, 8, 576, 32, 32, 64, torch.bfloat16) == (1, 3, 192)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [(1, 1, 576), (1, 2, 320), (1, 3, 192), (1, 5, 128),
+                                  (1, 9, 64), (2, 5, 128), (8, 4, 192)])
+def test_decode_attention_other_plans_round_correctly(plan):
+    """Zamba2's decode shape under other splits than the library's: each
+    output is the exact attention (fp64, from the same bf16 inputs) rounded
+    to bf16, give or take the fp32 arithmetic: within one bf16 step (2e-6
+    for a value near 0, where the step is smaller than fp32's error on terms
+    of order 1). So a plan's output may differ from another's or from the
+    plain version's by one rounding step (2^-9 for a value in [0.25, 0.5)),
+    but no more. A head tile larger than G (2 and 8 here, G = 1) leaves its
+    spare heads out."""
+    dev = cuda_device()
+    B, Sc, H, KV, hd = 8, 576, 32, 32, 64
+    q, k, v = _qkv(15, (B, H, hd), (B, Sc, KV, hd), BF16, dev)
+    lens = torch.tensor(SERVE_LENS, dtype=torch.int32, device=dev)
+    got = da.decode_attention_cuda(q, k, v, lens, with_plan=plan)
+    s = torch.einsum("bhd,bshd->bhs", q.double(), k.double()) / hd ** 0.5
+    s = s.masked_fill(torch.arange(Sc, device=dev)[None, None] >= lens[:, None, None],
+                      float("-inf"))
+    exact = torch.einsum("bhs,bshd->bhd", torch.softmax(s, -1), v.double())
+    step = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((got.double() - exact).abs() <= step + 2e-6).all())
+    assert torch.equal(got, da.decode_attention_cuda(q, k, v, lens, with_plan=plan))
 
 
 def _head_args(B, d, hid, K, dev):
@@ -159,6 +303,29 @@ def test_prod_head_kernel_large_logits_vs_fp64(c):
     assert kernel_err <= 2 * plain_err, (float(kernel_err), float(plain_err))
 
 
+def _ssd_args(dtype, B, S, H, P, N, decay, dev, seed=7):
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+    a = -decay * dt * np.exp(0.3 * rng.standard_normal(H))
+    f32 = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)
+    io = lambda shape: f32(rng.standard_normal(shape)).to(TDT[dtype])
+    return (io((B, S, H, P)), f32(dt), f32(a), io((B, S, N)), io((B, S, N)))
+
+
+def _check_ssd(args, dtype):
+    """y and h against the plain version, and a second call bit-identical;
+    returns the plain h."""
+    y, h = ops.ssd_scan(*args)
+    y_want, h_want = ref.ssd_scan_ref(*args)
+    assert y.dtype == TDT[dtype] and h.dtype == torch.float32
+    y_tol = dict(rtol=2e-2, atol=2e-2) if dtype == BF16 else dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y.float(), y_want.float(), **y_tol)
+    torch.testing.assert_close(h, h_want, rtol=2e-4, atol=2e-4)
+    y2, h2 = ops.ssd_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    return h_want
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("B,S,H,P,N", [
@@ -167,25 +334,60 @@ def test_prod_head_kernel_large_logits_vs_fp64(c):
     (1, 128, 24, 64, 128),    # Mamba2-130M's widths, S a multiple of the chunk
     (2, 300, 24, 64, 128),    # Mamba2-130M's widths, ragged last chunk
     (3, 77, 8, 64, 128),
+    (2, 65, 64, 64, 64),      # one step past a chunk
+    (2, 65, 24, 64, 128),
 ])
 @pytest.mark.parametrize("decay", [1.0, 0.01], ids=["fast-decay", "slow-decay"])
 def test_ssd_scan_kernel_vs_plain(dtype, B, S, H, P, N, decay):
     """``decay`` scales a = -dt. At 1 the decay over a chunk of 64 steps is
     about e^-50, so exp(cum_i) hides the carried state after a few rows of
     each chunk; at 0.01 it is about e^-0.5 and the state is most of y."""
-    dev = cuda_device()
-    rng = np.random.default_rng(7)
-    dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
-    a = -decay * dt * np.exp(0.3 * rng.standard_normal(H))
-    f32 = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)
-    io = lambda shape: f32(rng.standard_normal(shape)).to(TDT[dtype])
-    args = (io((B, S, H, P)), f32(dt), f32(a), io((B, S, N)), io((B, S, N)))
+    _check_ssd(_ssd_args(dtype, B, S, H, P, N, decay, cuda_device()), dtype)
+
+
+def _ssd_fp64(x, dt, a, Bm, Cm):
+    """The recurrence of ``ref.ssd_scan_ref`` in fp64: the exact answer both
+    fp32 versions approximate."""
+    x, dt, a, Bm, Cm = (t.double() for t in (x, dt, a, Bm, Cm))
+    h = torch.zeros(x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1], dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        h = torch.exp(a[:, t])[:, :, None, None] * h + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, t], x[:, t], Bm[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (2, 509, 64, 64, 64), (2, 300, 24, 64, 128), (2, 65, 64, 64, 64), (2, 65, 24, 64, 128)])
+def test_ssd_scan_no_decay(dtype, B, S, H, P, N):
+    """a = 0: nothing decays, the state grows over the whole sequence (|h| up
+    to ~60, |y| up to ~900). bf16 and the fp32 state h as in the test above.
+    fp32 y: at |y| ~ 900 two fp32 summation orders differ by more than 2e-4
+    (the plain version is 5.1e-4 off the fp64 recurrence at S=509), so y is
+    held against the fp64 recurrence, at the same tolerance."""
+    args = _ssd_args(dtype, B, S, H, P, N, 0.0, cuda_device())
+    if dtype == BF16:
+        _check_ssd(args, dtype)
+        return
     y, h = ops.ssd_scan(*args)
-    y_want, h_want = ref.ssd_scan_ref(*args)
-    assert y.dtype == TDT[dtype] and h.dtype == torch.float32
-    y_tol = dict(rtol=2e-2, atol=2e-2) if dtype == BF16 else dict(rtol=2e-4, atol=2e-4)
-    torch.testing.assert_close(y.float(), y_want.float(), **y_tol)
-    torch.testing.assert_close(h, h_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, ref.ssd_scan_ref(*args)[1], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y.double(), _ssd_fp64(*args)[0], rtol=2e-4, atol=2e-4)
+    y2, h2 = ops.ssd_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N", [(64, 128), (64, 64)], ids=["mamba2", "zamba2"])
+def test_ssd_scan_bf16_large_state(P, N):
+    """No decay over 128 steps at the served widths: |h| reaches ~45, where
+    one bf16 rounding of the fp32 operands would miss h's 2e-4 tolerance;
+    the hi/lo split holds it."""
+    h = _check_ssd(_ssd_args(BF16, 1, 128, 8, P, N, 0.0, cuda_device()), BF16)
+    assert float(h.abs().max()) > 35
 
 
 @pytest.mark.gpu
