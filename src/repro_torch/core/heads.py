@@ -23,17 +23,19 @@ Params = Dict[str, torch.Tensor]
 
 def head_init(seed: int, d: int, hidden: int, n_bins: int,
               device: DeviceLike = None) -> Params:
+    """Seeded head weights, drawn on the CPU and moved to ``device``, so a
+    seed gives the same weights on every device."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.Generator().manual_seed(seed)
     f32 = torch.float32
-    return {
-        "w1": torch.randn((d, hidden), generator=g, device=dev, dtype=f32)
-        * (1.0 / math.sqrt(d)),
-        "b1": torch.zeros(hidden, device=dev, dtype=f32),
-        "w2": torch.randn((hidden, n_bins), generator=g, device=dev, dtype=f32)
+    params = {
+        "w1": torch.randn((d, hidden), generator=g, dtype=f32) * (1.0 / math.sqrt(d)),
+        "b1": torch.zeros(hidden, dtype=f32),
+        "w2": torch.randn((hidden, n_bins), generator=g, dtype=f32)
         * (1.0 / math.sqrt(hidden)),
-        "b2": torch.zeros(n_bins, device=dev, dtype=f32),
+        "b2": torch.zeros(n_bins, dtype=f32),
     }
+    return {k: v.to(dev) for k, v in params.items()}
 
 
 def head_logits(params: Params, phi: torch.Tensor) -> torch.Tensor:

@@ -32,16 +32,25 @@ class LengthPredictor:
     pcfg: PredictorConfig
     losses: Optional[torch.Tensor] = None   # soft-CE of every optimizer step
 
-    @torch.no_grad()
-    def predict(self, phi: torch.Tensor, how: Optional[str] = None) -> torch.Tensor:
-        return head_predict(self.params, phi, self.edges, how or self.pcfg.decode)
+    def _features(self, phi) -> torch.Tensor:
+        """φ as given: a tensor passes through; NumPy (or any array) becomes
+        fp32 on the predictor's device, as the reference takes any array."""
+        if isinstance(phi, torch.Tensor):
+            return phi
+        return torch.as_tensor(np.asarray(phi), dtype=torch.float32,
+                               device=self.edges.device)
 
     @torch.no_grad()
-    def predict_dist(self, phi: torch.Tensor) -> torch.Tensor:
-        return head_probs(self.params, phi)
+    def predict(self, phi, how: Optional[str] = None) -> torch.Tensor:
+        return head_predict(self.params, self._features(phi), self.edges,
+                            how or self.pcfg.decode)
 
     @torch.no_grad()
-    def quantile(self, phi: torch.Tensor, q: float) -> torch.Tensor:
+    def predict_dist(self, phi) -> torch.Tensor:
+        return head_probs(self.params, self._features(phi))
+
+    @torch.no_grad()
+    def quantile(self, phi, q: float) -> torch.Tensor:
         """Conservative right-edge decode: the upper edge of the bin where the
         CDF crosses ``q`` (bin 0 when it never does). For the interpolated
         variant see :meth:`quantiles`."""
@@ -50,10 +59,10 @@ class LengthPredictor:
         return self.edges[k + 1]
 
     @torch.no_grad()
-    def quantiles(self, phi: torch.Tensor, qs: Sequence[float]):
+    def quantiles(self, phi, qs: Sequence[float]):
         """Fused histogram + interpolated quantiles in ONE head evaluation:
         ``(probs (B, K), quants (B, len(qs)))`` through the fused kernel."""
-        return head_quantiles(self.params, phi, self.edges, qs)
+        return head_quantiles(self.params, self._features(phi), self.edges, qs)
 
 
 def train_predictor(
@@ -97,9 +106,9 @@ def train_predictor(
     losses = []
     it = 0
     for _ in range(n_epochs):
-        perm = rng.permutation(N)
+        perm = torch.as_tensor(rng.permutation(N), device=dev)
         for s in range(steps_per_epoch):
-            idx = torch.as_tensor(perm[s * bs:(s + 1) * bs], device=dev)
+            idx = perm[s * bs:(s + 1) * bs]
             loss = soft_ce(head_logits(params, phi[idx]), target[idx])
             grads = torch.autograd.grad(loss, list(params.values()))
             opt.update(dict(zip(params, grads)), state, params, it)

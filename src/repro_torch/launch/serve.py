@@ -1,13 +1,23 @@
-"""Serving launcher of the port: ``--mode real`` (Track B).
+"""Serving launcher of the port. Two modes, as the reference's
+``repro/launch/serve.py``:
 
-Mirrors ``run_real`` of ``repro/launch/serve.py``: decode a served model with
-batched requests through :class:`RealEngine`, collect r generations per
-prompt, turn the lengths into ProD-D targets, train the shared head on φ of
-the first half of the prompts, and predict the second half's median through
-the fused head. ``--model`` picks any ported config (default ``tiny-lm``, as
-the reference) with seeded random weights; ``--device`` defaults to ``cuda``.
-``--mode sim`` (the cluster simulator) waits for its slice.
+  --mode sim   (default) the discrete-event simulator over a calibrated
+               Track-A scenario workload: train a ProD-D head on the
+               scenario's last-token φ, then serve the test split through
+               ``SimEngine`` under FCFS/max-reserve, FCFS/quantile, ProD-driven
+               SJF + quantile reservation, and the oracle. The head predicts
+               each run's medians through the fused head kernel.
+  --mode real  decode a served model with batched requests through
+               :class:`RealEngine`, collect r generations per prompt, turn the
+               lengths into ProD-D targets, train the shared head on φ of the
+               first half of the prompts, and predict the second half's median
+               through the fused head. ``--model`` picks any ported config
+               (default ``tiny-lm``, as the reference) with seeded random
+               weights.
 
+``--device`` defaults to ``cuda``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model tiny-lm
 """
 
@@ -26,9 +36,12 @@ from repro_torch.core import bins as bins_mod
 from repro_torch.core import targets as targets_mod
 from repro_torch.core.metrics import mae, noise_radius
 from repro_torch.core.predictor import train_predictor
+from repro_torch.data import make_scenario
 from repro_torch.data.tokenizer import N_TOPICS, ToyTokenizer
 from repro_torch.models.model_zoo import build_model
-from repro_torch.serving.engine import RealEngine
+from repro_torch.serving.engine import RealEngine, SimEngine
+from repro_torch.serving.request import workload_from_scenario
+from repro_torch.serving.scheduler import Policy
 
 
 def toy_prompts(n: int, seed: int):
@@ -73,6 +86,42 @@ def serving_config(name: str) -> ModelConfig:
     return cfg.with_overrides(dtype="float32") if cfg.name == "tiny-lm" else cfg
 
 
+def run_sim(args):
+    """Train a ProD-D head on a scenario's train split, then serve its test
+    split through ``SimEngine`` under four policies. Returns the four
+    ``ServeStats`` rows. The reference seeds the head with
+    ``PRNGKey(seed)``; the port with ``seed`` itself."""
+    dev = resolve_device(args.device)
+    data = make_scenario(args.model_tag, args.scenario,
+                         n_train=args.n_train, n_test=max(args.n_requests, 200),
+                         seed=args.seed)
+    bin_max = float(np.quantile(data.len_train, 0.999) * 1.3)
+    pcfg = PredictorConfig(n_bins=64, bin_max=bin_max, epochs=args.epochs)
+    edges = bins_mod.make_edges(pcfg.n_bins, pcfg.bin_max, device=dev)
+    target = targets_mod.dist_target(
+        torch.as_tensor(data.len_train, dtype=torch.float32, device=dev), edges)
+    pred = train_predictor(args.seed, data.phi_train["last"], target, pcfg, edges,
+                           device=dev)
+    reqs = workload_from_scenario(data, args.n_requests, seed=args.seed,
+                                  arrival_rate=args.arrival_rate)
+    print(f"scenario={args.model_tag}/{args.scenario} requests={len(reqs)} "
+          f"noise_radius={noise_radius(torch.as_tensor(data.len_test)):.1f}")
+    rows = []
+    for policy in (
+        Policy("fcfs", "max", max_seq_len=args.max_seq),
+        Policy("fcfs", "quantile", max_seq_len=args.max_seq),
+        Policy("sjf_pred", "quantile", max_seq_len=args.max_seq),
+        Policy("sjf_oracle", "oracle", max_seq_len=args.max_seq),
+    ):
+        eng = SimEngine(args.slots, args.kv_budget, policy, predictor=pred)
+        st = eng.run(reqs)
+        rows.append(st.row())
+        print(f"{st.policy:22s} mean_lat={st.mean_latency:9.1f} "
+              f"p90={st.p90_latency:9.1f} thr={st.throughput:6.2f} "
+              f"waste={st.kv_waste_ratio:.3f} overflow={st.overflow_events}")
+    return rows
+
+
 def run_real(args) -> Dict[str, object]:
     dev = resolve_device(args.device)
     cfg = serving_config(args.model)
@@ -91,15 +140,25 @@ def run_real(args) -> Dict[str, object]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["real"], default="real",
-                    help="'sim' (the cluster simulator) is not ported yet")
-    ap.add_argument("--model", default="tiny-lm")
+    ap.add_argument("--mode", choices=["sim", "real"], default="sim")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-requests", type=int, default=200)
+    ap.add_argument("--seed", type=int, default=0)
+    # --mode sim
+    ap.add_argument("--model-tag", default="qwen", choices=["qwen", "llama"])
+    ap.add_argument("--scenario", default="chat")
+    ap.add_argument("--n-train", type=int, default=800)
+    ap.add_argument("--arrival-rate", type=float, default=2.0)
+    ap.add_argument("--slots", type=int, default=32)
+    ap.add_argument("--kv-budget", type=int, default=40_000)
+    ap.add_argument("--max-seq", type=int, default=4096)
+    ap.add_argument("--epochs", type=int, default=20)
+    # --mode real
+    ap.add_argument("--model", default="tiny-lm")
     ap.add_argument("--max-new", type=int, default=96)
     ap.add_argument("--r", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
-    return run_real(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    return run_sim(args) if args.mode == "sim" else run_real(args)
 
 
 if __name__ == "__main__":

@@ -59,7 +59,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     from repro_torch.core.bins import make_edges
     from repro_torch.core.heads import head_init
     from repro_torch.core.predictor import train_predictor
-    from repro_torch.launch import serve
+    from repro_torch.core.baselines import run_method
+    from repro_torch.data import make_scenario
+    from repro_torch.launch import serve, table1
     from repro_torch.models.model_zoo import build_model
 
     model = build_model(get_config("tiny-lm"))
@@ -70,7 +72,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
              lambda: train_predictor(0, np.zeros((4, 8), np.float32),
                                      np.full((4, 3), 1 / 3, np.float32),
                                      PredictorConfig(n_bins=3, hidden=4)),
-             lambda: serve.main(["--n-requests", "2"])]
+             lambda: serve.main(["--n-requests", "2"]),
+             lambda: serve.main(["--mode", "real", "--n-requests", "2"]),
+             lambda: table1.main([]),
+             lambda: run_method(0, make_scenario("qwen", "math", n_train=8, n_test=4),
+                                "prod_d", PredictorConfig())]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

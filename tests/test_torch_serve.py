@@ -122,7 +122,7 @@ def test_eos_ends_a_row_and_sets_its_length(engines):
 
 
 def test_repeated_sampling_and_launcher_on_cpu():
-    out = serve.main(["--device", "cpu", "--n-requests", "6", "--r", "2",
+    out = serve.main(["--mode", "real", "--device", "cpu", "--n-requests", "6", "--r", "2",
                       "--max-new", "6"])
     assert np.isfinite(out["median"]).all() and out["median"].shape == (3,)
     assert out["quantiles"].shape == (3, 2)
