@@ -285,6 +285,36 @@ def test_prod_head_kernel_vs_plain(B, d, hid, K, qs):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,hid", [(1, 128), (8, 128), (33, 128), (512, 128),
+                                   (8, 64), (64, 64), (24, 32)])
+@pytest.mark.parametrize("qs", [None, QS], ids=["median", "qs"])
+def test_prod_head_trace_features_log_edges(B, hid, qs):
+    """The cluster's heads: d=4 trace features (noise-corrupted length-law
+    latents, ``serving/arrivals.py``), K=32 log-spaced bins up to 4096
+    (``bins.make_edges(32, 4096, "log")``). Hidden 128 is the dispatch
+    head (``fit_trace_head``'s default) at its padded buckets 8 and 512, one
+    row and a batch past the one-launch limit of 32; hidden 64 the refine
+    table's head; hidden 32 the hazard head on its grid. d=4 is below the
+    kernel's 32-row d-slice, so 28 of its rows are masked."""
+    from repro_torch.core.bins import make_edges
+    from repro_torch.serving.arrivals import TraceConfig, make_trace
+
+    dev = cuda_device()
+    phi = np.stack([r.phi for r in make_trace(TraceConfig(n_requests=B, seed=B))])
+    rng = np.random.default_rng(4)
+    arrs = [phi, rng.standard_normal((4, hid)) / 2.0, rng.standard_normal(hid) * 0.01,
+            rng.standard_normal((hid, 32)) / hid ** 0.5, np.zeros(32)]
+    args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+    args.append(make_edges(32, 4096.0, "log", device=dev))
+    p_got, q_got = ops.prod_head(*args, qs=qs)
+    p_want, q_want = ref.prod_head_ref(*args, qs=qs)
+    torch.testing.assert_close(p_got, p_want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(q_got, q_want, rtol=1e-4, atol=1e-3)
+    p_again, q_again = ops.prod_head(*args, qs=qs)
+    assert torch.equal(p_got, p_again) and torch.equal(q_got, q_again)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c", [4.0, 8.0, 12.8])
 def test_prod_head_kernel_large_logits_vs_fp64(c):
     """At d=4096 with weights of std c/sqrt(fan_in) (c=12.8 is std 0.2, the
