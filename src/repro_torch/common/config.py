@@ -70,18 +70,41 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant of a plain dense config: 2 layers, d_model<=256
+        (the reference's ``reduced`` for the configs the port can train; its
+        SSM, hybrid and sliding-window branches come with SSM training,
+        ROADMAP Queue 1 item 11, and the ring caches)."""
+        if self.family != "dense" or self.attn_window or self.local_global_ratio:
+            raise NotImplementedError(
+                f"{self.name}: reduced() covers plain dense configs; SSM, hybrid and "
+                "windowed ones wait for ROADMAP Queue 1 item 11 and the ring caches")
+        d = min(self.d_model, 256)
+        heads = min(self.n_heads, 4)
+        kv = min(self.n_kv_heads, heads)
+        while heads % kv:
+            kv -= 1
+        return self.with_overrides(
+            name=self.name + "-smoke", n_layers=2, d_model=d, n_heads=heads, n_kv_heads=kv,
+            head_dim=d // heads, d_ff=min(self.d_ff, 512) or self.d_ff,
+            vocab_size=min(self.vocab_size, 512))
+
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The AdamW fields of the reference's TrainConfig (the trainer's fields
-    come with the trainer's slice)."""
-
+    optimizer: str = "adamw"          # adamw | adafactor
     lr: float = 3e-4
-    schedule: str = "cosine"          # only "constant" is ported so far
+    schedule: str = "cosine"          # cosine | wsd | constant
     warmup_steps: int = 100
+    decay_steps: int = 10_000
+    stable_steps: int = 0             # WSD plateau
     weight_decay: float = 0.1
     beta1: float = 0.9
     beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatch: int = 0               # 0 = no gradient accumulation
+    remat: str = "full"               # none | full
+    seed: int = 0
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,9 @@
                first half of the prompts, and predict the second half's median
                through the fused head. ``--model`` picks any ported config
                (default ``tiny-lm``, as the reference) with seeded random
-               weights.
+               weights, or the weights of a ``launch/train.py`` checkpoint
+               (``--ckpt``; its whole train state, AdamW moments included,
+               is checked against the model's before the params are taken).
 
 ``--device`` defaults to ``cuda``.
 
@@ -29,7 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.common.config import ModelConfig, PredictorConfig
+from repro_torch.common.config import ModelConfig, PredictorConfig, TrainConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import bins as bins_mod
@@ -42,6 +44,8 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.serving.engine import RealEngine, SimEngine
 from repro_torch.serving.request import workload_from_scenario
 from repro_torch.serving.scheduler import Policy
+from repro_torch.training.checkpoint import restore_checkpoint
+from repro_torch.training.trainer import init_state
 
 
 def toy_prompts(n: int, seed: int):
@@ -127,6 +131,9 @@ def run_real(args) -> Dict[str, object]:
     cfg = serving_config(args.model)
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
+    if args.ckpt:
+        like = init_state(model, 0, TrainConfig(), params=params).tree()
+        params = restore_checkpoint(args.ckpt, like)["params"]
     eng = RealEngine(model, params, max_new=args.max_new)
     prompts, plens = toy_prompts(args.n_requests, args.seed)
     lens, phi = eng.repeated_sampling(prompts, plens, r=args.r, seed=args.seed)
@@ -157,6 +164,7 @@ def main(argv=None):
     ap.add_argument("--model", default="tiny-lm")
     ap.add_argument("--max-new", type=int, default=96)
     ap.add_argument("--r", type=int, default=8)
+    ap.add_argument("--ckpt", default=None)
     args = ap.parse_args(argv)
     return run_sim(args) if args.mode == "sim" else run_real(args)
 

@@ -1,16 +1,21 @@
 """Attention: GQA projections, prefill attention through the flash kernel,
-and decode attention against the KV cache through the split-KV kernel.
+decode attention against the KV cache through the split-KV kernel, and the
+training forward's blocked attention.
 
-The JAX package runs jnp twins of its Pallas kernels at these two points
+The JAX package runs jnp twins of its Pallas kernels at the first two points
 (``repro/models/attention.py:168,185``); the port calls its own kernels there,
-through ``kernels.ops``.
+through ``kernels.ops``. Training differentiates :func:`blocked_attention`, a
+plain PyTorch online softmax, as the reference's trainer differentiates its
+XLA ``blocked_attention``: the repo has no backward kernel to port.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops
@@ -76,3 +81,58 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     (B, Sc, KV, hd), lengths (B,) int32 valid prefix (the reference's
     ``full_cache_valid``) -> (B, 1, H, hd)."""
     return ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)[:, None]
+
+
+NEG_INF = -1e30
+BLOCK = 512            # the reference's block_q = block_kv
+
+
+def _pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """Pad axis 1 with zeros up to a multiple of ``mult``."""
+    pad = (-x.shape[1]) % mult
+    if not pad:
+        return x
+    return F.pad(x, [0, 0] * (x.ndim - 2) + [0, pad])
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal online-softmax attention over blocks of ``BLOCK`` keys, q (B, S,
+    H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd): the counterpart of
+    ``repro/models/attention.py:72-171`` at the arguments the training
+    forward gives it (causal, no key mask, the default blocks), step for step
+    (fp32 scores and accumulators, masked scores at -1e30, the output rounded
+    once to ``v``'s dtype). Key blocks past the diagonal are skipped: there
+    the reference's update multiplies by exp(0) and adds exp(-1e30 - m) = 0.
+    Plain PyTorch, so autograd differentiates it."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    blk = min(BLOCK, S)
+    q, k, v = _pad_to(q, blk), _pad_to(k, blk), _pad_to(v, blk)
+    pos = torch.arange(q.shape[1], device=q.device)
+    f32 = torch.float32
+    outs = []
+    for i in range(q.shape[1] // blk):
+        rows = slice(i * blk, (i + 1) * blk)
+        qc = q[:, rows].reshape(B, blk, KV, G, hd).to(f32)
+        m = torch.full((B, KV, G, blk), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((B, KV, G, blk), dtype=f32, device=q.device)
+        acc = torch.zeros((B, KV, G, blk, hd), dtype=f32, device=q.device)
+        for j in range(i + 1):
+            cols = slice(j * blk, (j + 1) * blk)
+            vb = v[:, cols]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qc, k[:, cols].to(f32)) * scale
+            mask = pos[cols][None, :] <= pos[rows][:, None]
+            s = torch.where(mask, s, torch.full((), NEG_INF, dtype=f32, device=q.device))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p.to(vb.dtype).to(f32), vb.to(f32))
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])   # (B, KV, G, blk, hd)
+    out = torch.stack(outs, dim=1)                                 # (B, nq, KV, G, blk, hd)
+    out = torch.movedim(out, -2, 2).reshape(B, -1, KV * G, hd)
+    return out[:, :S].to(v.dtype)

@@ -2,8 +2,9 @@
 are plain functions of (params, batch).
 
 The reference's ``Runtime`` knobs (block sizes, causal skip, MoE capacity,
-remat, mesh) are read by nothing in this slice — the kernels choose their own
-tiles and always skip fully masked tiles — so the port has no ``Runtime`` yet.
+mesh) are read by nothing in the port — the kernels choose their own tiles
+and always skip fully masked tiles — so the port has no ``Runtime``; the one
+knob it reads, ``remat``, is an argument of :meth:`Model.loss`.
 The ProD predictor head consumes ``hidden`` from prefill: the served model's
 last-layer hidden state of the last prompt token (paper §2.4).
 """
@@ -43,6 +44,14 @@ class Model:
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
         return init_tree(self.spec(), g, self.dtype, dev)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], remat: str = "none"):
+        """Training objective: next-token CE over ``batch["tokens"]``, masked
+        by ``batch["loss_mask"]`` if present. ``remat="full"`` recomputes each
+        layer in the backward pass. Returns (loss, metrics)."""
+        return transformer.lm_loss(params, self.cfg, batch["tokens"],
+                                   loss_mask=batch.get("loss_mask"),
+                                   remat=remat == "full")
 
     def prefill(self, params, tokens: torch.Tensor,
                 attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all"):

@@ -1,5 +1,5 @@
 """Decoder-only models of the dense, SSM and hybrid families: prefill and
-cached decode.
+cached decode; the training forward and its next-token loss (dense only).
 
 Architectures follow the reference's *layer plan*: a list of segments, each
 a ``(kinds, n_blocks)`` pair (``repro/models/transformer.py:58-82``):
@@ -31,6 +31,13 @@ the port keeps full caches, which give the same answers while
 sliding windows and local/global mixes, ``qk_norm`` and M-RoPE raise
 ``NotImplementedError`` until their slices (ROADMAP.md); the int8 KV cache
 has no switch in the port yet.
+
+The training forward (:func:`train_forward`, :func:`lm_loss`) runs the
+layers with :func:`attention.blocked_attention` in plain PyTorch, causal
+with no key mask, as the reference's train mode does, and can recompute
+each layer in the backward pass (``remat``, the reference's
+``jax.checkpoint``, ``transformer.py:307``). SSM layers do not train yet:
+the reference's ``ssm_apply_train`` is queued (ROADMAP.md, queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+
+import torch.utils.checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
@@ -276,3 +285,56 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     hidden = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     logits = unembed(hidden, params["embed"], params.get("head"))
     return logits, hidden
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def _train_layer(p, x, cfg: ModelConfig, angles):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(p["attn"], h, cfg, angles)
+    o = attn.blocked_attention(q, k, v)
+    return _ffn(p, x + attn.out_project(p["attn"], o), cfg)
+
+
+def train_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
+                  remat: bool = False):
+    """Full-sequence causal pass for training, differentiable by autograd.
+    Returns (logits (B, S, V) fp32, hidden (B, S, d)). With ``remat`` each
+    layer keeps only its input and is recomputed in the backward pass."""
+    kinds = layer_kinds(cfg)
+    if any(kind != "full" for kind in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: training a {cfg.family} model needs the reference's "
+            f"ssm_apply_train (repro/models/ssm.py:140), not ported yet "
+            f"(ROADMAP.md, queue 1 item 11)")
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    angles = rope_angles(positions_from_tokens(B, S, device=tokens.device),
+                         cfg.head_dim, cfg.rope_theta)
+    for lp in params["layers"]:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_train_layer, lp, x, cfg, angles,
+                                                  use_reentrant=False)
+        else:
+            x = _train_layer(lp, x, cfg, angles)
+    hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(hidden, params["embed"], params.get("head")), hidden
+
+
+def lm_loss(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
+            loss_mask: Optional[torch.Tensor] = None, remat: bool = False):
+    """Next-token cross-entropy, the mean over ``loss_mask[:, 1:]`` where a
+    mask is given. Returns (loss, metrics)."""
+    logits, _ = train_forward(params, cfg, tokens, remat=remat)
+    targets = tokens[:, 1:].to(torch.long)
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    if loss_mask is not None:
+        m = loss_mask[:, 1:].to(torch.float32)
+        loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    else:
+        loss = torch.mean(nll)
+    return loss, {"loss": loss}

@@ -35,8 +35,10 @@
   the parameters live on. Sampling is temperature sampling through the
   Gumbel-max trick with a seeded ``torch.Generator`` on that device;
   ``jax.random`` draws other numbers from the same seed, so the parity tests
-  feed both frameworks the same tokens. ``collect_per_step`` (per-step
-  hidden states) waits for the online-predictor slice.
+  feed both frameworks the same tokens. ``collect_per_step`` keeps every
+  decode step's last-layer hidden state φ(z_t) and which rows were still
+  generating after it, for the online remaining-length predictor
+  (``core/online.py``).
 
 Nothing here reads the wall clock, a global RNG or a set's order.
 """
@@ -1339,9 +1341,14 @@ class RealEngine:
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, prompt_lens: np.ndarray,
-                 gen: torch.Generator, collect_hidden: bool = True) -> Dict[str, np.ndarray]:
+                 gen: torch.Generator, collect_hidden: bool = True,
+                 collect_per_step: bool = False) -> Dict[str, np.ndarray]:
         """prompts: (B, Sp) right-padded. Returns lengths (B,), phi (B, d)
-        fp32 (None without ``collect_hidden``) and tokens (B, max_new)."""
+        fp32 (None without ``collect_hidden``), tokens (B, max_new) and, with
+        ``collect_per_step`` (else None), step_hidden (B, max_new, d) fp32,
+        the hidden state of each decode step's input token, and step_valid
+        (B, max_new), the rows not finished after that step (paper §2.2's
+        t > 0 case)."""
         dev = self.device
         B, Sp = prompts.shape
         tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
@@ -1364,6 +1371,11 @@ class RealEngine:
         out_tokens = torch.zeros((B, self.max_new), dtype=torch.int32, device=dev)
         gen_len = torch.zeros(B, dtype=torch.int64, device=dev)
         eos = torch.full((), self.eos, dtype=torch.long, device=dev)
+        step_hidden = step_valid = None
+        if collect_per_step:
+            step_hidden = torch.zeros((B, self.max_new, self.model.cfg.d_model),
+                                      dtype=torch.float32, device=dev)
+            step_valid = torch.zeros((B, self.max_new), dtype=torch.bool, device=dev)
         for step in range(self.max_new):
             nxt = torch.where(finished, eos, self._sample(cur_logits, gen))
             out_tokens[:, step] = nxt.to(torch.int32)
@@ -1372,12 +1384,16 @@ class RealEngine:
             gen_len = torch.where(newly, step + 1, gen_len)
             if bool(finished.all()):
                 break
-            cur_logits, _ = self.model.decode_step(self.params, nxt, cache,
-                                                   pos=lengths, lengths=lengths + 1)
+            cur_logits, hid = self.model.decode_step(self.params, nxt, cache,
+                                                     pos=lengths, lengths=lengths + 1)
+            if collect_per_step:
+                step_hidden[:, step] = hid
+                step_valid[:, step] = ~finished
             lengths = lengths + (~finished).to(torch.int32)
         gen_len = torch.where(gen_len == 0, self.max_new, gen_len)
-        return {"lengths": gen_len.cpu().numpy(), "phi": phi,
-                "tokens": out_tokens.cpu().numpy()}
+        host = lambda t: None if t is None else t.cpu().numpy()
+        return {"lengths": host(gen_len), "phi": phi, "tokens": host(out_tokens),
+                "step_hidden": host(step_hidden), "step_valid": host(step_valid)}
 
     def repeated_sampling(self, prompts: np.ndarray, prompt_lens: np.ndarray,
                           r: int, seed: int = 0):

@@ -61,8 +61,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     from repro_torch.core.predictor import train_predictor
     from repro_torch.core.baselines import run_method
     from repro_torch.data import make_scenario
-    from repro_torch.launch import serve, table1
+    from repro_torch.data.pipeline import batch_iterator, make_lm_dataset
+    from repro_torch.launch import bench_fig1, bench_online, serve, table1, train
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.training.trainer import init_state, train_loop
+    from repro_torch.common.config import TrainConfig
 
     model = build_model(get_config("tiny-lm"))
     calls = [lambda: model.init(seed=0),
@@ -76,7 +79,13 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
              lambda: serve.main(["--mode", "real", "--n-requests", "2"]),
              lambda: table1.main([]),
              lambda: run_method(0, make_scenario("qwen", "math", n_train=8, n_test=4),
-                                "prod_d", PredictorConfig())]
+                                "prod_d", PredictorConfig()),
+             lambda: next(batch_iterator(make_lm_dataset(4, 8), 2)),
+             lambda: init_state(model, 0, TrainConfig()),
+             lambda: train_loop(model, TrainConfig(), iter([]), 1),
+             lambda: train.main(["--steps", "1"]),
+             lambda: bench_online.run(train_steps=1, n_prompts=2, max_new=2),
+             lambda: bench_fig1.run(n_noise=4, verbose=False)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

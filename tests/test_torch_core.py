@@ -188,8 +188,13 @@ def test_lr_schedule_and_clipping():
     js, ts = joptim.lr_schedule(JTrainConfig(**cfg)), optim.lr_schedule(TrainConfig(**cfg))
     for s in (0, 1, 3, 4, 50):
         assert abs(ts(s) - float(js(jnp.asarray(s, jnp.float32)))) < 1e-9
-    with pytest.raises(NotImplementedError):
-        optim.lr_schedule(TrainConfig(schedule="cosine"))
+    for sched in ("cosine", "wsd"):       # ported with the trainer
+        js = joptim.lr_schedule(JTrainConfig(schedule=sched, stable_steps=20, decay_steps=60))
+        ts = optim.lr_schedule(TrainConfig(schedule=sched, stable_steps=20, decay_steps=60))
+        for s in (0, 1, 50, 99, 130):
+            assert abs(ts(s) - float(js(jnp.asarray(s, jnp.float32)))) <= 1e-6 * 3e-4
+    with pytest.raises(KeyError):
+        optim.lr_schedule(TrainConfig(schedule="linear"))
     _, g = _opt_inputs()
     for max_norm in (0.5, 100.0):
         tg, tn = optim.clip_by_global_norm({k: _t(v) for k, v in g.items()}, max_norm)

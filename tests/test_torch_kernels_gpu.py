@@ -107,7 +107,7 @@ def _check_decode(q, k, v, lens, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("B,Sc,H,KV,hd", [(2, 100, 8, 2, 64), (3, 300, 32, 8, 128),
-                                          (1, 40, 4, 4, 32)])
+                                          (1, 40, 4, 4, 32), (48, 86, 4, 2, 32)])
 def test_decode_attention_kernel_vs_plain(dtype, B, Sc, H, KV, hd):
     dev = cuda_device()
     q, k, v = _qkv(5, (B, H, hd), (B, Sc, KV, hd), dtype, dev)
@@ -266,14 +266,19 @@ def _head_args(B, d, hid, K, dev):
                          + [(B, d, 512, 64) for B in (1, 8, 17, 512, 513)
                             for d in (768, 2048, 4096)]
                          + [(8, 4100, 512, 64), (513, 4100, 512, 64), (8, 96, 512, 64)]
-                         + [(B, 64, 512, 64) for B in (200, 350, 700, 1319)])
+                         + [(B, 64, 512, 64) for B in (200, 350, 700, 1319)]
+                         + [(B, 128, 512, 24) for B in (48, 240, 512)]
+                         + [(512, 4096, 512, 24)])
 @pytest.mark.parametrize("qs", [None, QS], ids=["median", "qs"])
 def test_prod_head_kernel_vs_plain(B, d, hid, K, qs):
     """Small heads, then the served d (Mamba2, Zamba2, Llama) at batches on
     both sides of the 8-row and 128-row tiles of the hidden stage, d that
-    is not a multiple of its d-slice, and the Track-A head (d=64) at the
+    is not a multiple of its d-slice, the Track-A head (d=64) at the
     batches of ``--mode sim`` (200) and Table 1 (350 and 700 fast, 1319
-    with ``--full``). The d-splits are summed in a fixed
+    with ``--full``), and the online heads of ``launch/bench_online.py``
+    (tiny-lm's d=128, K=24: the static head on 48 prompts, the online head
+    on a few hundred decode states) and of the Llama online phase (d=4096,
+    K=24, 512 states). The d-splits are summed in a fixed
     order, so a second call agrees with the first bit for bit."""
     args = _head_args(B, d, hid, K, cuda_device())
     p_got, q_got = ops.prod_head(*args, qs=qs)
@@ -464,3 +469,84 @@ def test_kernels_count_their_launches():
     before = ssd_scan_cuda.launches
     ops.ssd_scan(x, dt, dt, Bm, Bm)
     assert ssd_scan_cuda.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 48])
+def test_flash_attention_tiny_lm_prompts(B):
+    """bench_online's prefill: tiny-lm (H=4, KV=2, hd=32, fp32) on prompts
+    of 6 tokens."""
+    dev = cuda_device()
+    q, k, v = _qkv(7, (B, 6, 4, 32), (B, 6, 2, 32), F32, dev)
+    lens = torch.full((B,), 6, dtype=torch.int32, device=dev)
+    got = ops.flash_attention(q, k, v, causal=True, kv_lengths=lens)
+    close(got, ref.flash_attention_ref(q, k, v, causal=True, kv_lengths=lens), F32)
+
+
+def _tempered_tiny_lm():
+    """tiny-lm's seeded fp32 weights with every layer's wq and wk scaled by
+    0.1: at the init scales layer 0's softmax is near one-hot and one ulp
+    moves the gradients by ~4e-4 of their norm (tests/test_torch_training.py),
+    so devices could not be compared tightly there."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    m = build_model(get_config("tiny-lm").with_overrides(dtype="float32"))
+    params = m.init(seed=0, device="cpu")
+    for lp in params["layers"]:
+        lp["attn"]["wq"] *= 0.1
+        lp["attn"]["wk"] *= 0.1
+    return m, params
+
+
+@pytest.mark.gpu
+def test_model_loss_and_grads_on_the_card_match_the_cpu():
+    """The trainer's objective (blocked attention, plain PyTorch under
+    autograd) on the card against the CPU: the loss rtol 1e-5 and every
+    gradient within 1e-5 of the global norm; remat gives the card's own."""
+    from repro_torch.common.pytree import tree_flatten, tree_map
+    from repro_torch.data.pipeline import batch_iterator, make_lm_dataset
+
+    dev = cuda_device()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m, params = _tempered_tiny_lm()
+        batch = next(batch_iterator(make_lm_dataset(16, 48), 8, device="cpu"))
+        out = {}
+        for where, remat in (("cpu", "none"), ("cuda", "none"), ("cuda", "full")):
+            p = tree_map(lambda t: t.to(where).requires_grad_(True), params)
+            flat = tree_flatten(p)
+            loss, _ = m.loss(p, {k: v.to(where) for k, v in batch.items()}, remat=remat)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+            out[where, remat] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu", "none"], out["cuda", "none"]
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-5, atol=0)
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g_cpu)))
+    assert max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_cpu)) <= 1e-5 * norm
+    l_remat, g_remat = out["cuda", "full"]
+    torch.testing.assert_close(l_remat, l_gpu, rtol=1e-6, atol=0)
+    for a, b in zip(g_remat, g_gpu):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [37, 600])
+def test_blocked_attention_grads_on_the_card_match_the_cpu(S):
+    """One block of keys (S=37) and two, the second ragged (S=600)."""
+    from repro_torch.models.attention import blocked_attention
+
+    dev = cuda_device()
+    rng = np.random.default_rng(9)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((2, S, 4, 32), (2, S, 2, 32), (2, S, 2, 32), (2, S, 4, 32))]
+    res = []
+    for where in ("cpu", dev):
+        q, k, v = (torch.from_numpy(a).to(where).requires_grad_(True) for a in arrs[:3])
+        o = blocked_attention(q, k, v)
+        grads = torch.autograd.grad((o * torch.from_numpy(arrs[3]).to(where)).sum(), (q, k, v))
+        res.append([o.detach().cpu()] + [g.cpu() for g in grads])
+    for a, b in zip(res[1], res[0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
