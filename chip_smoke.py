@@ -12,7 +12,9 @@ script exits non-zero without its result line:
    parallel, timed;
 3. kernels: each CUDA kernel against its plain PyTorch version at the serving
    shapes (and the fp32 flash and decode at the online phase's tiny-lm
-   shapes), with the stated tolerance, timed beside the plain version, one
+   shapes; flash, decode and the head also at the dense configs' shapes:
+   GQA groups 7 and 48, MiniCPM-2B's 36-head MHA, d = 2304-7168), with the
+   stated tolerance, timed beside the plain version, one
    PyTorch library call as a yardstick where one computes the same function
    (timed only, never used by the port) and the least time the card could
    take (``bound_ms``), with the achieved rate and its share of the bound.
@@ -35,12 +37,25 @@ script exits non-zero without its result line:
    - Llama-3-8B (32 layers, d=4096, bf16), r=4: flash, decode and head;
    - Zamba2-1.2B (38 Mamba2 layers + the shared attention block 6 times,
      d=2048, bf16), r=4: all four kernels;
-   - Mamba2-130M (24 layers, d=768, bf16), r=2: scan and head.
+   - Mamba2-130M (24 layers, d=768, bf16), r=2: scan and head;
+   - Qwen2.5-7B (28 layers, G=7), r=4; Granite-20B (52 layers, 48 query
+     heads on one KV head), r=2; MiniCPM-2B (40 layers, MHA, tied 122,753-
+     token vocabulary), r=2; Yi-34B (60 layers, G=7, d=7168; 68.8 GB of
+     weights), r=2: flash, decode and head.
    The launch counts are set to 0 before each model's run and read after it;
-   each kernel the model's path runs must have risen. The head kernel is then
+   each kernel the model's path runs must have risen, and equal
+   ``expected_launches`` when no row met EOS. The head kernel is then
    held against its plain version on the trained weights and the served phi
    (and, after Llama, its disagreement is printed against the logit scale);
-   one prefill and one decode step are timed and profiled;
+   one prefill and one decode step are timed against ``model_bounds`` (and
+   profiled, but for Granite-20B and MiniCPM-2B), and the peak memory is
+   printed; each model is freed before the next;
+   long: Zamba2-1.2B past its 8,192-token window (``long_phase``: 4 prompts
+   of up to 8,960 tokens, the shared block decoding on rings, 257 padded
+   query rows with no valid key), its flash, decode and scan calls held
+   against their plain versions on the phase's own inputs (flash and decode
+   within 2e-2 of sum p|v| on V as served; two planted flash faults must
+   fail that check);
 5. table1: the paper's Table 1, fast profile (8 Track-A settings x 7
    methods), every head trained on the card; its claims must equal the
    reference's, and prod_head is the one kernel launched (32 times);
@@ -82,7 +97,9 @@ script exits non-zero without its result line:
    per-step error held within its prefill's one-ulp spread and, at depth 1,
    within 5e-2. Then the online head trained on the 512 states at d=4096 and
    predicting them through the head kernel;
-10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+10. e2e: ``launch/serve_with_prod.py`` at its defaults (all nine stages,
+   tiny-lm trained on the card): flash (32), decode and head launched;
+11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -90,6 +107,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -237,13 +255,16 @@ def kernel_checks(torch, ref, kernels):
     # the 50 MB L2) is written between launches, outside the timed events.
     # The online heads at K=24: bench_online's on tiny-lm's d=128
     # (the static head on 48 prompts, the online head on ~256 decode
-    # states) and the Llama online phase's on 512 states at d=4096.
+    # states) and the Llama online phase's on 512 states at d=4096. Then
+    # B=8 at the dense configs' widths: Qwen2.5-7B 3584, Granite-20B 6144,
+    # MiniCPM-2B 2304, Yi-34B 7168.
     hidden = 512
     qs = torch.tensor([0.5, 0.9, 0.99], device=dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for B, d, K in ((8, 4096, 64), (8, 2048, 64), (8, 768, 64), (512, 4096, 64),
                     (200, 64, 64), (350, 64, 64), (700, 64, 64),
-                    (48, 128, 24), (256, 128, 24), (512, 4096, 24)):
+                    (48, 128, 24), (256, 128, 24), (512, 4096, 24),
+                    (8, 3584, 64), (8, 6144, 64), (8, 2304, 64), (8, 7168, 64)):
         w1 = torch.randn(d, hidden, generator=g, device=dev) / d ** 0.5
         b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
         w2 = torch.randn(hidden, K, generator=g, device=dev) / hidden ** 0.5
@@ -338,15 +359,18 @@ def kernel_checks(torch, ref, kernels):
                      "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
                      "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
-    # --- flash attention at the two prefill shapes of the served models:
-    # Llama-3-8B (H=32, KV=8, hd=128) and Zamba2-1.2B's shared block (H=32,
-    # KV=32, hd=64, window 8192); B=8, S=512, bf16, causal, ragged key
+    # --- flash attention at the prefill shapes of the served models:
+    # Llama-3-8B (H=32, KV=8, hd=128), Zamba2-1.2B's shared block (H=32,
+    # KV=32, hd=64, window 8192), then Qwen2.5-7B (28/4: G=7), Granite-20B
+    # (48/1: G=48), MiniCPM-2B (36/36, hd=64) and Yi-34B (56/8: G=7);
+    # B=8, S=512, bf16, causal, ragged key
     # lengths; tolerance bf16 2e-2 (tests/test_kernels.py): both sides
     # compute in fp32 and round the output to bf16 once.
     bf = torch.bfloat16
     B, S = 8, 512
     lens = torch.tensor([512, 300, 257, 480, 399, 511, 266, 448], dtype=torch.int32, device=dev)
-    for H, KV, hd, window in ((32, 8, 128, 0), (32, 32, 64, 8192)):
+    for H, KV, hd, window in ((32, 8, 128, 0), (32, 32, 64, 8192), (28, 4, 128, 0),
+                              (48, 1, 128, 0), (36, 36, 64, 0), (56, 8, 128, 0)):
         q = torch.randn(B, S, H, hd, generator=g, device=dev).to(bf)
         k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(bf)
         v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(bf)
@@ -382,8 +406,9 @@ def kernel_checks(torch, ref, kernels):
                      "bytes": nbytes, "flops": flops,
                      "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
-    # --- decode attention at the two decode shapes: B=8, Sc=576, ragged
-    # lengths, bf16, Llama-3-8B's heads and Zamba2's; tolerance 2e-2. The
+    # --- decode attention at the decode shapes: B=8, Sc=576, ragged
+    # lengths, bf16, Llama-3-8B's heads and Zamba2's, then the dense configs'
+    # (G=7, G=48 on one KV head, MiniCPM-2B's MHA); tolerance 2e-2. The
     # yardstick is SDPA on the cache as the kernel takes it (K/V heads
     # transposed as views, enable_gqa: no copy made outside the call). Timed
     # L2 warm (the 19-38 MB cache fits the 50 MB L2) and, as the serve path
@@ -393,7 +418,8 @@ def kernel_checks(torch, ref, kernels):
     Sc = 576
     dl = torch.tensor([576, 301, 258, 540, 400, 575, 267, 449], dtype=torch.int32, device=dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    for H, KV, hd in ((32, 8, 128), (32, 32, 64)):
+    for H, KV, hd in ((32, 8, 128), (32, 32, 64), (28, 4, 128), (48, 1, 128), (36, 36, 64),
+                      (56, 8, 128)):
         qd = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
         kc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
         vc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
@@ -432,8 +458,15 @@ def kernel_checks(torch, ref, kernels):
         # value to bf16, so they may differ by one bf16 step (give or take
         # 2e-6 of fp32 error near 0), by no more
         row["plan"] = list(decode_plan(dev, B, Sc, H, KV, hd, bf))
-        row["split_sweep"] = []
         G = H // KV
+        n_blocks = row["plan"][1] * B * KV * -(-G // row["plan"][0])
+        print(f"decode_attention {row['shape']}: plan {row['plan']} (head tile, splits, keys "
+              f"a split): {n_blocks} blocks for "
+              f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
+        rows.append(row)
+        if (H, KV, hd) not in ((32, 8, 128), (32, 32, 64)):
+            continue          # the split sweep at the two first-served shapes only
+        row["split_sweep"] = []
         for p in sorted({tuple(row["plan"])} | {
                 (min(8, 1 << (G - 1).bit_length()), n, c)
                 for n, c in ((1, 576), (2, 320), (3, 192), (5, 128), (6, 96), (9, 64))}):
@@ -453,7 +486,6 @@ def kernel_checks(torch, ref, kernels):
                   f"{e['plan']} {e['device_ms']:.4f} ms warm, {e['cold_device_ms']:.4f} cold, "
                   f"max|err| {e['max_abs_err']:.3g}"
                   for e in row["split_sweep"]))
-        rows.append(row)
     del flush
 
     # --- flash attention in fp32 at the online phase's prefill
@@ -608,9 +640,14 @@ def kernel_checks(torch, ref, kernels):
         check(torch.allclose(h, h_plain, rtol=2e-4, atol=2e-4),
               f"ssd_scan fp32 a=0 S={S}: h max err {max_err(torch, h, h_plain)}")
 
+    report_rows(rows)
+    return rows
+
+
+def report_rows(rows) -> None:
+    """Achieved rates (bytes and operations) and the share of the bound, of
+    the eager call and of the device time, added to each row and printed."""
     for r in rows:
-        # achieved rates (bytes and operations) and the share of the bound,
-        # of the eager call and of the device time
         r["rate"] = (f"{r['bytes'] / r['ms'] / 1e9:.3g} TB/s, "
                      f"{r['flops'] / r['ms'] / 1e9:.3g} TFLOP/s")
         r["device_rate"] = (f"{r['bytes'] / r['device_ms'] / 1e9:.3g} TB/s, "
@@ -620,7 +657,9 @@ def kernel_checks(torch, ref, kernels):
         if "cold_device_ms" in r:
             r["cold_device_bound_share"] = r["bound_ms"] / r["cold_device_ms"]
         lib = ("none" if r["library_ms"] is None else
-               f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} ms)")
+               f"{r['library_ms']:.4f} ms (device "
+               + ("not measured" if r["library_device_ms"] is None
+                  else f"{r['library_device_ms']:.4f} ms") + ")")
         cold = (f"; L2 cold {r['cold_ms']:.4f} ms (device {r['cold_device_ms']:.4f} ms, "
                 f"{100 * r['bound_ms'] / r['cold_device_ms']:.1f}% of the bound), "
                 f"library {r['library_cold_ms']:.4f} ms (device "
@@ -634,14 +673,19 @@ def kernel_checks(torch, ref, kernels):
               f"({r['bound_by']}), {r['rate']} ({r['device_rate']} device), "
               f"{100 * r['bound_share']:.3g}% of the bound "
               f"({100 * r['device_bound_share']:.3g}% device){cold}")
-    return rows
 
 
-# each served model: generations per prompt, and the kernels its path runs
+# each served model: generations per prompt, the kernels its path runs, and
+# whether one prefill and one decode step are profiled
+DENSE = ("flash_attention", "decode_attention", "prod_head")
 SERVE_PHASES = (
-    ("llama3-8b", 4, ("flash_attention", "decode_attention", "prod_head")),
-    ("zamba2-1.2b", 4, ("ssd_scan", "flash_attention", "decode_attention", "prod_head")),
-    ("mamba2-130m", 2, ("ssd_scan", "prod_head")),
+    ("llama3-8b", 4, DENSE, True),
+    ("zamba2-1.2b", 4, ("ssd_scan", "flash_attention", "decode_attention", "prod_head"), True),
+    ("mamba2-130m", 2, ("ssd_scan", "prod_head"), True),
+    ("qwen2.5-7b", 4, DENSE, True),
+    ("granite-20b", 2, DENSE, False),
+    ("minicpm-2b", 2, DENSE, False),
+    ("yi-34b", 2, DENSE, True),
 )
 
 
@@ -655,13 +699,15 @@ def expected_launches(kinds, r: int, max_new: int):
             "decode_attention": r * max_new * n_attn, "prod_head": 2}
 
 
-def model_bounds(cfg, kinds, n_params: int, B: int, Sp: int, cache_len: int):
+def model_bounds(cfg, kinds, n_params: int, B: int, Sp: int, cache_len: int,
+                 n_keys: int = 0):
     """Least times of one prefill and one decode step of the served model.
     Prefill: the weight products alone (2 FLOPs per weight applied per
     token; attention scores and the scan left out) at the bf16 peak. Decode
     step: every weight read once (the shared block once, an untied
     embedding table only at its B rows), the SSM states read and written in
-    fp32 and the K/V prefix read, over the memory rate."""
+    fp32 and the K/V read, over the memory rate: ``n_keys`` keys a layer
+    (summed over the rows), or all B x cache_len slots."""
     d, hd = cfg.d_model, cfg.head_dim
     H, P, N = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
     ssm_w = d * (2 * H * P + 2 * N + H) + H * P * d
@@ -672,7 +718,7 @@ def model_bounds(cfg, kinds, n_params: int, B: int, Sp: int, cache_len: int):
     n_ssm = sum(k == "ssm" for k in kinds)
     n_attn = len(kinds) - n_ssm
     step_bytes = (2 * weights + n_ssm * 2 * 4 * B * H * P * N
-                  + n_attn * 2 * 2 * B * cache_len * cfg.n_kv_heads * hd)
+                  + n_attn * 2 * 2 * (n_keys or B * cache_len) * cfg.n_kv_heads * hd)
     return (prefill_flops, prefill_flops / BF16_FLOPS * 1e3,
             step_bytes, step_bytes / HBM_BYTES_PER_S * 1e3)
 
@@ -690,7 +736,7 @@ def served_prompts(vocab: int):
     return prompts, plens
 
 
-def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool):
+def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, profile: bool):
     """Phase 4 for one model: the port's main path at full width and depth."""
     import numpy as np
 
@@ -703,6 +749,7 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool):
     dev = torch.device("cuda")
     cfg = get_config(name)                   # each model in its own dtype (bf16)
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
@@ -752,7 +799,8 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool):
     print(f"serve {name}: median {np.round(med, 3).tolist()} q0.9 "
           f"{np.round(quants[:, 1], 3).tolist()} test MAE {out['mae']:.3f} noise radius "
           f"{out['noise_radius']:.3f} final soft-CE {out['final_loss']:.4f}")
-    print(f"serve {name}: launches on the main path {json.dumps(launches)}")
+    print(f"serve {name}: launches on the main path {json.dumps(launches)}; expected with "
+          f"every row at max_new {json.dumps({k: expect[k] for k in kernels_on_path})}")
     head_checks(torch, counters["prod_head"], out["predictor"],
                 torch.as_tensor(phi[B // 2:], dtype=torch.float32, device=dev), sweep=sweep)
 
@@ -773,8 +821,11 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool):
               f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP of weight products); decode step "
               f"(B={B}, Sc={Sp + max_new}) {step_ms:.2f} ms, bound {bytes_ms:.3f} ms "
               f"({step_bytes / 1e9:.2f} GB)")
-        device_profile(torch, prefill, f"{name} prefill")
-        device_profile(torch, step, f"{name} decode step")
+        if profile:
+            device_profile(torch, prefill, f"{name} prefill")
+            device_profile(torch, step, f"{name} decode step")
+    print(f"serve {name}: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated; weights {2 * n_params / 1e9:.2f} GB)")
     return launches
 
 
@@ -1489,6 +1540,293 @@ def online_phase(torch, ref, counters):
     return {k: launches_a[k] + launches_b[k] for k in counters}
 
 
+class capture:
+    """Within the block, ``ops.<name>`` records the inputs of its first call
+    (tensors cloned) and returns what the kernel returns; restored after."""
+
+    def __init__(self, ops, name: str):
+        self.ops, self.name, self.args, self.kwargs = ops, name, None, None
+
+    def __enter__(self):
+        self.orig = getattr(self.ops, self.name)
+
+        def rec(*args, **kwargs):
+            if self.args is None:
+                clone = lambda t: t.clone() if hasattr(t, "clone") else t
+                self.args = [clone(a) for a in args]
+                self.kwargs = {k: clone(v) for k, v in kwargs.items()}
+            return self.orig(*args, **kwargs)
+
+        setattr(self.ops, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.orig)
+
+
+LONG_LENS = (8960, 8704, 8300, 512)
+
+
+def long_phase(torch, ref, counters):
+    """Zamba2-1.2B past its 8,192-token window: B=4 prompts of 8,960 / 8,704 /
+    8,300 / 512 tokens right-padded to Sp=8,960, max_new=64, one generation.
+    The prefill's flash calls run with the window biting at full shape and
+    the scan at S=8,960; the shared block decodes on 8,192-slot rings
+    (lengths min(len, W)); the 512-token row has 257 padded query rows with
+    no valid key (the reference's empty-row value). Then each kernel is
+    held against its plain version on the phase's own inputs (captured in a
+    second prefill and decode step, not counted): flash (the plain version a
+    query chunk of 512 at a time, through q_offset: whole, it would hold a
+    41 GB score tensor) and decode on the rings, the scan's y at 2e-2 and h
+    at 2e-4. Flash and decode are held on V as served (|v| reaches ~43),
+    each output element within 2e-2 of sum_k p_k |v_k|, its plain version
+    on |v|: a bf16 softmax-weighted sum errs in proportion to that sum, not
+    to |o|, which cancellation can make small. Two planted faults must fail
+    that check: the flash kernel without its window, and its output with
+    the rows that have no valid key set to 0."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serving.engine import RealEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config("zamba2-1.2b")
+    W = cfg.attn_window
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=dev)
+    kinds = layer_kinds(cfg)
+    n_attn, n_ssm = sum(k != "ssm" for k in kinds), sum(k == "ssm" for k in kinds)
+    n_params = sum(int(p.numel()) for p in _leaves(params))
+    B, Sp, max_new = len(LONG_LENS), max(LONG_LENS), 64
+    plens = np.array(LONG_LENS)
+    rng = np.random.default_rng(1)
+    prompts = np.zeros((B, Sp), np.int64)
+    for i, n in enumerate(plens):
+        prompts[i, :n] = rng.integers(3, cfg.vocab_size, size=n)
+    eng = RealEngine(model, params, max_new=max_new)
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, plens, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    lens, phi = out["lengths"], out["phi"]
+    check(phi.shape == (B, cfg.d_model) and np.isfinite(phi).all(), "long: phi shape/finite")
+    check(lens.min() >= 1 and lens.max() <= max_new, "long: lengths range")
+    check(launches["ssd_scan"] == n_ssm and launches["flash_attention"] == n_attn,
+          f"long: prefill launches {launches}")
+    check(launches["decode_attention"] > 0 and launches["prod_head"] == 0,
+          f"long: decode launches {launches}")
+    if lens.min() == max_new:
+        check(launches["decode_attention"] == max_new * n_attn, f"long: decode launches {launches}")
+    n_tok = int(lens.sum())
+    print(f"long: Zamba2-1.2B B={B} prompts {list(LONG_LENS)} padded to {Sp}, window {W}, "
+          f"max_new={max_new}: {gen_s:.2f} s, {n_tok} generated tokens, "
+          f"{n_tok / gen_s:.1f} tokens/s (prefill included); lengths {lens.tolist()}; "
+          f"launches {json.dumps(launches)}")
+
+    tokens = torch.as_tensor(prompts, device=dev)
+    lens_t = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+    valid = torch.arange(Sp, device=dev)[None, :] < lens_t[:, None]
+    nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        prefill = lambda: model.prefill(params, tokens, attn_valid=valid, logits_mode="none")
+        prefill_ms = time_ms(torch, prefill, iters=2, warmup=1)
+        with capture(ops, "flash_attention") as fl, capture(ops, "ssd_scan") as sc:
+            _, _, pcache = prefill()
+        cache = model.decode_cache(pcache, Sp + max_new)
+        del pcache
+        rings = [e[0].shape[1] for e in cache if not isinstance(e, dict)]
+        check(rings == [W] * n_attn, f"long: shared-block caches {rings}, expected rings of {W}")
+        step = lambda: model.decode_step(params, nxt, cache, lens_t, lens_t + 1)
+        with capture(ops, "decode_attention") as dc:
+            step()
+        step_ms = time_ms(torch, step, iters=10, warmup=2)
+    # bounds: the prefill's weight products plus its attention pairs at the
+    # bf16 peak; a decode step's weights, states and K/V of min(len+1, W) keys
+    qpos = np.arange(Sp)[None, :]
+    lo = np.maximum(0, qpos - W + 1)
+    hi = np.minimum(qpos, plens[:, None] - 1)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())            # per head
+    n_empty = int((hi < lo).sum())
+    attn_flops = 4 * cfg.head_dim * cfg.n_heads * pairs * n_attn
+    n_keys = int(np.minimum(plens + 1, W).sum())
+    flops, flops_ms, step_bytes, bytes_ms = model_bounds(cfg, kinds, n_params, B, Sp,
+                                                         Sp + max_new, n_keys=n_keys)
+    print(f"long: prefill (B={B}, S={Sp}) {prefill_ms:.1f} ms, bound "
+          f"{(flops + attn_flops) / BF16_FLOPS * 1e3:.2f} ms ({flops / 1e12:.2f} TFLOP of "
+          f"weight products + {attn_flops / 1e12:.2f} of attention); decode step on the rings "
+          f"{step_ms:.2f} ms, bound {bytes_ms:.3f} ms ({step_bytes / 1e9:.3f} GB, K/V of "
+          f"{n_keys} keys a layer); {n_empty} padded query rows with no valid key; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    rows = []
+
+    def held(got, want, scale):
+        """(the worst |got - want| / (2e-2 * scale), elements beyond 1)."""
+        r = (got.float() - want.float()).abs() / (2e-2 * scale.float()).clamp_min(1e-30)
+        return float(r.max()), int((r > 1).sum())
+
+    # flash, on the first shared block's prefill inputs, v as served
+    q, k, v = fl.args
+    kw = fl.kwargs
+    flash = lambda window: counters["flash_attention"](q, k, v, causal=True, window=window,
+                                                       kv_lengths=kw["kv_lengths"])
+    call = lambda: flash(kw["window"])
+    got = call()
+
+    def plain(vv=v):
+        return torch.cat([ref.flash_attention_ref(
+            q[:, i:i + 512], k, vv, causal=True, window=kw["window"], q_offset=i,
+            kv_lengths=kw["kv_lengths"]) for i in range(0, Sp, 512)], dim=1)
+
+    want = plain()
+    scale = plain(v.abs())                           # sum_k p_k |v_k|, per element
+    torch.cuda.synchronize()
+    check(kw["window"] == W, f"long: flash window {kw['window']}")
+    empty = torch.as_tensor(hi < lo, device=dev)                     # (B, Sp)
+    err_empty = float((got.float() - want.float()).abs()[empty].max())
+    worst, beyond = held(got, want, scale)
+    print(f"long: flash B={B} S={Sp} window {W}, v as served (max|v| "
+          f"{float(v.float().abs().max()):.3g}): max|kernel-plain| {max_err(torch, got, want):.3g}"
+          f", on the {n_empty} rows with no valid key {err_empty:.3g} (max|out| there "
+          f"{float(want.float().abs()[empty].max()):.3g}); worst error {worst:.3g} of its "
+          f"tolerance 2e-2 * sum p|v| (median sum p|v| {float(scale.float().median()):.3g})")
+    check(beyond == 0, f"long: flash_attention {beyond} elements beyond 2e-2 * sum p|v| "
+          f"(worst {worst:.3g} of it)")
+    faults = {"no window": flash(0),
+              "empty rows 0": got.masked_fill(empty[:, :, None, None], 0)}
+    for name, bad in faults.items():
+        worst, beyond = held(bad, want, scale)
+        print(f"long: planted fault '{name}': {beyond} elements beyond the tolerance, worst "
+              f"{worst:.3g} of it")
+        check(beyond > 0, f"long: the flash check passes the planted fault '{name}'")
+    del faults, scale
+    lib_ms = lib_dev_ms = None
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        pos = torch.arange(Sp, device=dev)
+        mask = ((pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W))[None] & \
+            (pos[None, None, :] < lens_t[:, None, None])
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None])
+
+        lib_ms = time_ms(torch, sdpa, iters=3, warmup=1)
+        lib_dev_ms = device_time_ms(torch, sdpa, iters=3)
+    except RuntimeError as e:                   # no backend takes this mask here
+        print(f"long: SDPA yardstick not measured ({str(e).splitlines()[0][:120]})")
+    nbytes = 2 * (2 * B * Sp * cfg.n_heads * cfg.head_dim
+                  + 2 * int(plens.sum()) * cfg.n_kv_heads * cfg.head_dim) + 4 * B
+    fl_flops = 4 * cfg.head_dim * cfg.n_heads * pairs
+    b_ms, b_by = bound(nbytes, fl_flops, BF16_FLOPS)
+    rows.append({"name": "flash_attention",
+                 "shape": f"B={B} S={Sp} H=32 KV=32 hd=64 bf16 causal window={W} ragged (long)",
+                 "max_abs_err": max_err(torch, got, want), "ms": time_ms(torch, call, iters=3),
+                 "plain_ms": time_ms(torch, plain, iters=1, warmup=0), "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib_ms, "bytes": nbytes, "flops": fl_flops,
+                 "device_ms": device_time_ms(torch, call, iters=3),
+                 "library_device_ms": lib_dev_ms})
+    del got, want
+
+    # decode, on the first shared block's ring at the step above, v as served
+    qd, kc, vc, dlen = dc.args
+    check(dlen.tolist() == [min(n + 1, W) for n in LONG_LENS], f"long: ring lengths {dlen.tolist()}")
+    call = lambda: counters["decode_attention"](qd, kc, vc, dlen)
+    got = call()
+    want = ref.decode_attention_ref(qd, kc, vc, dlen)
+    worst, beyond = held(got, want, ref.decode_attention_ref(qd, kc, vc.abs(), dlen))
+    torch.cuda.synchronize()
+    print(f"long: decode on the rings, lengths {dlen.tolist()}, v as served: max|kernel-plain| "
+          f"{max_err(torch, got, want):.3g}, worst error {worst:.3g} of its tolerance "
+          f"2e-2 * sum p|v|")
+    check(beyond == 0, f"long: decode_attention {beyond} elements beyond 2e-2 * sum p|v| "
+          f"(worst {worst:.3g} of it)")
+    dmask = (torch.arange(W, device=dev)[None, :] < dlen[:, None])[:, None, None]
+    sdpa = lambda: F.scaled_dot_product_attention(qd[:, :, None], kc.transpose(1, 2),
+                                                  vc.transpose(1, 2), attn_mask=dmask)
+    nk = int(dlen.long().sum())
+    nbytes = 2 * (2 * B * cfg.n_heads * cfg.head_dim + 2 * nk * cfg.n_kv_heads * cfg.head_dim)
+    d_flops = 4 * cfg.head_dim * cfg.n_heads * nk
+    b_ms, b_by = bound(nbytes, d_flops, BF16_FLOPS)
+    rows.append({"name": "decode_attention",
+                 "shape": f"B={B} Sc={W} H=32 KV=32 hd=64 bf16 ring lengths {dlen.tolist()} (long)",
+                 "max_abs_err": max_err(torch, got, want),
+                 "ms": time_ms(torch, call, iters=50), "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, dlen)),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, sdpa, iters=50),
+                 "bytes": nbytes, "flops": d_flops,
+                 "device_ms": device_time_ms(torch, call, iters=50),
+                 "library_device_ms": device_time_ms(torch, sdpa, iters=50)})
+    del cache, qd, kc, vc
+
+    # the scan, on the first SSM layer's prefill inputs
+    sargs = sc.args
+    call = lambda: counters["ssd_scan"](*sargs)
+    y, h = call()
+    y_ref, h_ref = ref.ssd_scan_ref(*sargs)
+    torch.cuda.synchronize()
+    Bs, S_, H, P = sargs[0].shape
+    N = sargs[3].shape[-1]
+    print(f"long: ssd_scan B={Bs} S={S_} H={H} P={P} N={N}: y max|err| "
+          f"{max_err(torch, y, y_ref):.3g} at max|y| {float(y_ref.float().abs().max()):.4g}; "
+          f"h max|err| {max_err(torch, h, h_ref):.3g} at max|h| {float(h_ref.abs().max()):.4g}")
+    check(torch.allclose(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2),
+          f"long: ssd_scan y max err {max_err(torch, y, y_ref)}")
+    check(torch.allclose(h, h_ref, rtol=2e-4, atol=2e-4),
+          f"long: ssd_scan h max err {max_err(torch, h, h_ref)}")
+    nbytes = 2 * 2 * Bs * S_ * H * P + 2 * 4 * Bs * S_ * H + 2 * 2 * Bs * S_ * N + 4 * Bs * H * P * N
+    s_flops = ssd_scan_flops(Bs, S_, H, P, N)
+    b_ms, b_by = bound(nbytes, s_flops, BF16_FLOPS)
+    rows.append({"name": "ssd_scan", "shape": f"B={Bs} S={S_} H={H} P={P} N={N} bf16 (long)",
+                 "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, h, h_ref)),
+                 "ms": time_ms(torch, call, iters=5),
+                 "plain_ms": time_ms(torch, lambda: ref.ssd_scan_ref(*sargs), iters=1, warmup=0),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": nbytes,
+                 "flops": s_flops, "device_ms": device_time_ms(torch, call, iters=5),
+                 "library_device_ms": None})
+    report_rows(rows)
+    return launches
+
+
+def e2e_phase(torch, counters):
+    """``launch/serve_with_prod.py`` at its defaults on the card (tiny-lm
+    trained 300 steps, 64 prompts x 8 generations of up to 96 tokens, the
+    head, then 96 served requests through stages 4-9); it prints each
+    stage's rows. Flash, decode and the head must launch; the scan must not."""
+    import numpy as np
+
+    from repro_torch.launch import serve_with_prod
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = serve_with_prod.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"e2e: {wall:.1f} s wall; launches {json.dumps(launches)}")
+    check(out["lengths"].shape == (64, 8), f"e2e: lengths {out['lengths'].shape}")
+    for k in ("flash_attention", "decode_attention", "prod_head"):
+        check(launches[k] > 0, f"e2e: {k} was not launched")
+    check(launches["ssd_scan"] == 0, "e2e: ssd_scan launched off its path")
+    check(launches["flash_attention"] == 8 * 4, f"e2e: flash launches {launches}")
+    check(all(r["service"]["batches"] > 0 for r in out["service"]), "e2e: no fused batches")
+    check(out["prefix"][1]["kv_amplification"] > 1.0, "e2e: shared prefix pages unused")
+    check(np.isfinite(out["head_mae"]), "e2e: head MAE not finite")
+    return launches
+
+
 # name fragments of the port's CUDA kernels (csrc/*.cu)
 PORT_KERNELS = ("flash_fwd_", "decode_fwd", "ssd_scan_", "prod_head_")
 
@@ -1579,15 +1917,21 @@ def main() -> int:
                "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
     rows = kernel_checks(torch, ref, kernels)
     by_phase = {}
-    for i, (name, r, on_path) in enumerate(SERVE_PHASES):
-        by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0))
+    for i, (name, r, on_path, profile) in enumerate(SERVE_PHASES):
+        by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0),
+                               profile=profile)
+        gc.collect()                 # each model's weights go before the next's
         torch.cuda.empty_cache()
+    by_phase["long"] = long_phase(torch, ref, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
     by_phase["table1"] = table1_phase(torch, kernels)
     by_phase["sim"] = sim_phase(torch, kernels)
     by_phase["cluster"] = cluster_phase(torch, kernels)
     by_phase["train"] = train_phase(torch, kernels)
     torch.cuda.empty_cache()
     by_phase["online"] = online_phase(torch, ref, kernels)
+    by_phase["e2e"] = e2e_phase(torch, kernels)
 
     sources = {"prod_head": ("src/repro_torch/kernels/csrc/prod_head.cu",
                              "src/repro/kernels/prod_head.py:61"),

@@ -28,6 +28,7 @@ class ModelConfig:
     attn_window: int = 0             # 0 = full attention; >0 = sliding window
     local_global_ratio: int = 0
     rope_theta: float = 10000.0
+    rope_theta_local: float = 10000.0  # the rope base of "local" (windowed) layers
     use_mrope: bool = False
     qk_norm: bool = False
 
@@ -70,24 +71,58 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's formula for the families
+        the port builds (dense, ssm, hybrid; the shared block counted once)."""
+        d, L, V = self.d_model, self.n_layers, self.vocab_size
+        hd = self.head_dim
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        ffn = (3 if self.act == "silu" else 2) * d * self.d_ff
+        if self.family in ("dense", "vlm"):
+            total = L * (attn + ffn)
+        elif self.family == "ssm":
+            total = L * self._ssm_layer_params()
+        elif self.family == "hybrid":
+            total = L * self._ssm_layer_params() + attn + ffn
+        else:
+            raise ValueError(f"{self.name}: no parameter count for family {self.family!r} "
+                             "in the port yet")
+        return int(total + emb)
+
+    def _ssm_layer_params(self) -> int:
+        d = self.d_model
+        d_inner = self.ssm_n_heads * self.ssm_head_dim
+        n = self.ssm_state
+        # in_proj (z, x, B, C, dt), conv, A, D, out_proj (one state group)
+        return (d * (2 * d_inner + 2 * n + self.ssm_n_heads) + d_inner * self.ssm_conv_width
+                + 2 * self.ssm_n_heads + d_inner * d)
+
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant of a plain dense config: 2 layers, d_model<=256
-        (the reference's ``reduced`` for the configs the port can train; its
-        SSM, hybrid and sliding-window branches come with SSM training,
-        ROADMAP Queue 1 item 11, and the ring caches)."""
-        if self.family != "dense" or self.attn_window or self.local_global_ratio:
+        """Smoke-test variant of the same family: 2 layers, d_model<=256 (the
+        reference's ``reduced``): SSM state<=16 in 4 heads of 32, a hybrid
+        attending every layer, a window of at most 16. A local/global mix
+        waits for the Gemma3 slice (ROADMAP Queue 1 item 11)."""
+        if self.local_global_ratio or self.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"{self.name}: reduced() covers plain dense configs; SSM, hybrid and "
-                "windowed ones wait for ROADMAP Queue 1 item 11 and the ring caches")
+                f"{self.name}: reduced() covers the dense, ssm and hybrid families; a "
+                "local/global mix waits for the Gemma3 slice (ROADMAP Queue 1 item 11)")
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4)
         kv = min(self.n_kv_heads, heads)
         while heads % kv:
             kv -= 1
-        return self.with_overrides(
-            name=self.name + "-smoke", n_layers=2, d_model=d, n_heads=heads, n_kv_heads=kv,
-            head_dim=d // heads, d_ff=min(self.d_ff, 512) or self.d_ff,
-            vocab_size=min(self.vocab_size, 512))
+        kw = dict(name=self.name + "-smoke", n_layers=2, d_model=d, n_heads=heads,
+                  n_kv_heads=kv, head_dim=d // heads, d_ff=min(self.d_ff, 512) or self.d_ff,
+                  vocab_size=min(self.vocab_size, 512))
+        if self.family in ("ssm", "hybrid"):
+            kw.update(ssm_state=min(self.ssm_state, 16), ssm_heads=4, ssm_head_dim=32,
+                      ssm_chunk=16)
+        if self.family == "hybrid":
+            kw.update(attn_every=1)
+        if self.attn_window:
+            kw.update(attn_window=min(self.attn_window, 16))
+        return self.with_overrides(**kw)
 
 
 @dataclass(frozen=True)

@@ -49,8 +49,13 @@
 // Both kernels keep the TPU kernel's masks: a key counts only if
 // kp < min(kv_len[b], Skv), and also kp <= qp when causal and qp - kp < window
 // when window > 0; masked scores are filled with -1e30. A row with no valid
-// key at all gets 0 here, where the plain version averages V; the serving
-// path never asks for one.
+// key at all gets the reference model's value, sum_{k < Skv} v_k / Skv_pad
+// with Skv_pad = Skv rounded up to a block of min(512, Skv) keys (the
+// reference's blocked prefill takes p = 1 for every key of such a row;
+// kernels/ref.py::empty_row_value). A ring-cached shared block meets such
+// rows where a short prompt shares a batch padded past its length plus the
+// window. A row learns that it is empty only at its end (l == 0 in bf16,
+// m == -1e30 in fp32), so the sum is made there, and only for such rows.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -99,12 +104,58 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+__device__ __forceinline__ int empty_row_pad(int Skv) {
+  const int blk = min(512, Skv);
+  return (Skv + blk - 1) / blk * blk;
+}
+
+// The empty-row value of a warp that holds such a row: every key's V row of
+// (b, KV head g) summed in fp32, 16 bytes a lane, the lanes that share a
+// column chunk then combined; out[jn][0..1] get columns 8 jn + cq, + 1 (the
+// thread's accumulator columns). Called by all 32 lanes.
+template <int HD>
+__device__ __forceinline__ void empty_row_sums(const __nv_bfloat16* __restrict__ vg, int b,
+                                               int g, int Skv, int KV, int lane, int cq,
+                                               float (*out)[2]) {
+  constexpr int NC = HD / 8;   // 16-byte chunks of a key row
+  constexpr int KL = 32 / NC;  // keys the warp reads at once
+  const int cc = lane % NC;
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  const __nv_bfloat16* vb = vg + ((size_t)b * Skv * KV + g) * HD + 8 * cc;
+#pragma unroll 4
+  for (int kp = lane / NC; kp < Skv; kp += KL) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(vb + (size_t)kp * KV * HD);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 f = __bfloat1622float2(h2[t]);
+      acc[2 * t] += f.x;
+      acc[2 * t + 1] += f.y;
+    }
+  }
+#pragma unroll
+  for (int off = NC; off < 32; off *= 2)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+#pragma unroll
+  for (int jn = 0; jn < NC; ++jn) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float t = __shfl_sync(0xffffffffu, acc[e], jn);  // lane jn holds chunk jn
+      if (e == cq) out[jn][0] = t;
+      if (e == cq + 1) out[jn][1] = t;
+    }
+  }
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-               const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ kv_len,
-               __nv_bfloat16* __restrict__ o, int B, int Sq, int Skv, int H, int KV, int causal,
-               int window, float scale_log2) {
+               const __grid_constant__ CUtensorMap tm_v, const __nv_bfloat16* __restrict__ vg,
+               const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ o, int B, int Sq,
+               int Skv, int H, int KV, int causal, int window, float scale_log2) {
   using T = Tile<HD>;
   constexpr int BN = T::BN, SWZ = T::SWZ;
   extern __shared__ uint8_t smem_raw[];
@@ -264,6 +315,20 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
+    // rows with no valid key take the empty-row value (see the header)
+    const bool e0 = l0 == 0.f && qlo + r0 < Sq, e1 = l1 == 0.f && qlo + r0 + 8 < Sq;
+    if (__any_sync(0xffffffffu, e0 || e1)) {
+      float ev[HD / 8][2];
+      empty_row_sums<HD>(vg, b, g, Skv, KV, lane, cq, ev);
+#pragma unroll
+      for (int jn = 0; jn < HD / 8; ++jn) {
+        if (e0) oacc[4 * jn] = ev[jn][0], oacc[4 * jn + 1] = ev[jn][1];
+        if (e1) oacc[4 * jn + 2] = ev[jn][0], oacc[4 * jn + 3] = ev[jn][1];
+      }
+      const float pad = (float)empty_row_pad(Skv);
+      if (e0) l0 = pad;
+      if (e1) l1 = pad;
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int qp = qlo + r0 + 8 * half;
@@ -294,9 +359,10 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, const int* 
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
   const int n_q = (Sq + kBM - 1) / kBM;
-  kern<<<n_q * B * H, kThreads, T::SMEM, stream>>>(mq, mk, mv, kv_len,
-                                                    static_cast<__nv_bfloat16*>(o), B, Sq, Skv,
-                                                    H, KV, causal, window,
+  kern<<<n_q * B * H, kThreads, T::SMEM, stream>>>(mq, mk, mv,
+                                                    static_cast<const __nv_bfloat16*>(v),
+                                                    kv_len, static_cast<__nv_bfloat16*>(o), B,
+                                                    Sq, Skv, H, KV, causal, window,
                                                     scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -443,15 +509,39 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
   __syncthreads();
 
+  // rows with no valid key (m still -1e30) take the empty-row value: the
+  // column sums of V over every key, made in Ks/Vs only when a row needs them
+  bool empty = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    empty = empty || (q0 + ty + 16 * i < Sq && m_s[ty + 16 * i] == kNegInf);
+  if (__syncthreads_or(empty)) {
+    constexpr int NPART = kThreads / HD;
+    float sum = 0.f;
+    for (int kp = tid / HD; kp < Skv; kp += NPART)
+      sum += to_f32(v[((size_t)(b * Skv + kp) * KV + g) * HD + tid % HD]);
+    Ks[tid] = sum;
+    __syncthreads();
+    if (tid < HD) {
+      float t = 0.f;
+      for (int p = 0; p < NPART; ++p) t += Ks[p * HD + tid];
+      Vs[tid] = t;
+    }
+    __syncthreads();
+  }
+  const float pad = (float)empty_row_pad(Skv);
+
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     const int qp = q0 + r;
     if (qp >= Sq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
+    const bool none = m_s[r] == kNegInf;
+    const float l = none ? pad : fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      o[((size_t)(b * Sq + qp) * H + h) * HD + tx + 16 * j] = from_f32<T>(acc[i][j] / l);
+      o[((size_t)(b * Sq + qp) * H + h) * HD + tx + 16 * j] =
+          from_f32<T>((none ? Vs[tx + 16 * j] : acc[i][j]) / l);
   }
 }
 

@@ -4,9 +4,17 @@ Line for line with ``repro/kernels/ref.py``. The CPU tests hold these against
 the JAX oracles; ``chip_smoke.py`` holds each CUDA kernel against them on the
 card; ``ops`` runs them for tensors that lie on the CPU.
 
-One addition: ``flash_attention_ref`` takes ``kv_lengths`` (B,), the valid
-key prefix of each row, which is how the port's prefill passes the reference
-model's right-padding mask (``kv_valid``) to the attention.
+Two additions to ``flash_attention_ref``: it takes ``kv_lengths`` (B,), the
+valid key prefix of each row, which is how the port's prefill passes the
+reference model's right-padding mask (``kv_valid``) to the attention; and a
+query row with no valid key gets the reference model's value there, not a
+softmax over -1e30. The reference's serving prefill
+(``repro/models/attention.py:72-171``, blocks of ``min(512, Skv)`` keys)
+takes exp(-1e30 - (-1e30)) = 1 for every key of such a row, the zero
+padding of the last block included, so the row is
+sum_{k < Skv} v_k / Skv_pad, Skv_pad being Skv rounded up to a whole block.
+A prefill meets such rows where a short prompt shares a batch padded past
+its length plus the window (a ring-cached shared block).
 """
 
 from __future__ import annotations
@@ -49,7 +57,16 @@ def flash_attention_ref(
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bkgqh", p, v.to(torch.float32))
+    o = torch.where(~mask.any(dim=-1)[..., None], empty_row_value(v)[:, :, None, None], o)
     return torch.movedim(o, 3, 1).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def empty_row_value(v: torch.Tensor) -> torch.Tensor:
+    """(B, Skv, KV, hd) -> (B, KV, hd) fp32: what the reference's blocked
+    prefill gives a query row that no key is valid for."""
+    Skv = v.shape[1]
+    blk = min(512, Skv)
+    return v.to(torch.float32).sum(dim=1) / (-(-Skv // blk) * blk)
 
 
 def decode_attention_ref(

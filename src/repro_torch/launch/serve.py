@@ -12,7 +12,9 @@
                lengths into ProD-D targets, train the shared head on φ of the
                first half of the prompts, and predict the second half's median
                through the fused head. ``--model`` picks any ported config
-               (default ``tiny-lm``, as the reference) with seeded random
+               (default ``tiny-lm``, as the reference; Llama-3-8B,
+               Qwen2.5-7B, Granite-20B, MiniCPM-2B, Yi-34B, Zamba2-1.2B and
+               Mamba2-130M at full size in bf16) with seeded random
                weights, or the weights of a ``launch/train.py`` checkpoint
                (``--ckpt``; its whole train state, AdamW moments included,
                is checked against the model's before the params are taken).
@@ -21,6 +23,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model tiny-lm
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model qwen2.5-7b
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig, PredictorConfig, TrainConfig
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core import bins as bins_mod
 from repro_torch.core import targets as targets_mod
 from repro_torch.core.metrics import mae, noise_radius
@@ -84,8 +87,7 @@ def fit_and_predict(lens: np.ndarray, phi: np.ndarray, n_bins: int, seed: int = 
 
 def serving_config(name: str) -> ModelConfig:
     """The config ``--mode real`` serves: the model's own dtype (bf16 for
-    Llama-3-8B, Zamba2-1.2B and Mamba2-130M), except tiny-lm, which the
-    reference serves in fp32."""
+    every ported config but tiny-lm, which the reference serves in fp32)."""
     cfg = get_config(name)
     return cfg.with_overrides(dtype="float32") if cfg.name == "tiny-lm" else cfg
 
@@ -161,7 +163,7 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=4096)
     ap.add_argument("--epochs", type=int, default=20)
     # --mode real
-    ap.add_argument("--model", default="tiny-lm")
+    ap.add_argument("--model", default="tiny-lm", choices=list_archs())
     ap.add_argument("--max-new", type=int, default=96)
     ap.add_argument("--r", type=int, default=8)
     ap.add_argument("--ckpt", default=None)

@@ -77,10 +77,20 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
-    """Single-token attention against a full cache: q (B, 1, H, hd), cache
-    (B, Sc, KV, hd), lengths (B,) int32 valid prefix (the reference's
-    ``full_cache_valid``) -> (B, 1, H, hd)."""
+    """Single-token attention against a cache: q (B, 1, H, hd), cache (B, Sc,
+    KV, hd), lengths (B,) int32 valid prefix in slot order (the reference's
+    ``full_cache_valid``, or :func:`ring_cache_valid` for a ring) -> (B, 1,
+    H, hd)."""
     return ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)[:, None]
+
+
+def ring_cache_valid(lengths: torch.Tensor, window: int) -> torch.Tensor:
+    """The valid slots of a ring of ``window`` slots as a prefix length:
+    ``min(lengths, window)``. The reference's ``ring_cache_valid`` is the
+    mask ``arange(window) < min(lengths, window)``, a prefix in slot order;
+    the softmax does not care in which order the keys sit, so the decode
+    kernel's prefix contract holds on a ring as it is."""
+    return torch.clamp(lengths, max=window)
 
 
 NEG_INF = -1e30

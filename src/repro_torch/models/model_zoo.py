@@ -73,8 +73,9 @@ class Model:
                                       resolve_device(device))
 
     def decode_cache(self, prefill_cache, cache_len: int):
-        """The cache ``prefill`` returned, grown to ``cache_len`` positions
-        for decode (raises where the shared block's window is outgrown)."""
+        """The cache ``prefill`` returned, made a decode cache of
+        ``cache_len`` positions: full K/V grown to it, a windowed layer's
+        K/V a ring of its window once ``cache_len`` outgrows it."""
         return transformer.decode_cache(self.cfg, prefill_cache, cache_len)
 
 

@@ -5,6 +5,8 @@ M-RoPE (Qwen2-VL) comes with the VLM slice.
 
 from __future__ import annotations
 
+from typing import Dict, Iterable
+
 import torch
 
 
@@ -17,6 +19,17 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.T
     """positions (B, S) int -> rotation angles (B, S, head_dim//2) fp32."""
     freqs = rope_freqs(head_dim, theta, device=positions.device)
     return positions[..., None].to(torch.float32) * freqs
+
+
+def angles_by_base(positions: torch.Tensor, head_dim: int, theta: float,
+                   theta_local: float, kinds: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """One angle table per rope base the attention layers use: "local" for
+    the ``local`` (windowed) layers, at ``theta_local``, and "global" for
+    every other attention layer, at ``theta`` (the reference's
+    ``_precompute_angles``, ``repro/models/transformer.py:158-170``)."""
+    keys = {"local" if k == "local" else "global" for k in kinds if k != "ssm"}
+    return {key: rope_angles(positions, head_dim, theta_local if key == "local" else theta)
+            for key in keys}
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

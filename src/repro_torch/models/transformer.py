@@ -5,6 +5,7 @@ Architectures follow the reference's *layer plan*: a list of segments, each
 a ``(kinds, n_blocks)`` pair (``repro/models/transformer.py:58-82``):
 
 * uniform dense:   [ (('full',), L) ]
+* dense, windowed: [ (('local',), L) ]
 * mamba2:          [ (('ssm',), L) ]
 * zamba2 hybrid:   [ (('shared_attn',) + ('ssm',)*k, L//k), (('ssm',)*(L%k), 1) ]
 
@@ -16,19 +17,26 @@ attention + SiLU MLP block (Zamba2), with a K/V cache of its own per
 invocation.
 
 The cache is a list with one entry per layer in execution order: a
-``(k, v)`` pair of (B, cache_len, KV, hd) tensors for an attention layer, an
+``(k, v)`` pair of (B, Sc, KV, hd) tensors for an attention layer, an
 ``{"h", "conv"}`` dict for an SSM layer (``models/ssm.py``). Prefill returns
-K/V of the prompt's length; :func:`decode_cache` grows them to
-``prompt_len + max_new`` (where the reference pads the prefill cache,
-``RealEngine._grow_cache``). Each decode step writes its token's K/V in place
-at row ``b``, position ``pos[b]`` (``transformer.py:409-411`` does so out of
-place) and replaces each SSM entry with the new state.
+K/V of the prompt's length; :func:`decode_cache` makes the decode cache of
+``cache_len = prompt_len + max_new`` positions from it (where the reference
+pads the prefill cache, ``RealEngine._grow_cache``). A full layer's K/V are
+grown to ``cache_len``. A windowed layer (``local``, and Zamba2's
+``shared_attn``) keeps ``Sc = min(window, cache_len)`` slots, as the
+reference's ``cache_spec`` does; where that is the window the cache is a
+ring: position t sits at slot t % window, and a prefill longer than the
+window leaves its last ``window`` *padded* positions there
+(``_ring_from_prefill``, ``repro/models/transformer.py:230-244``; a short
+row in a long batch so attends to pad K/V, as in the reference). Each
+decode step writes its token's K/V in place at row ``b``, slot ``pos[b]``
+(``pos[b] % window`` in a ring; the reference writes out of place) and
+attends to ``min(lengths, window)`` slots of a ring
+(:func:`attention.ring_cache_valid`), and replaces each SSM entry with the
+new state. The window also goes to the prefill kernel. ``local`` layers
+take their own rope base (``rope_theta_local``).
 
-The shared block's window (Zamba2: 8192) goes to the prefill kernel. The
-reference keeps that block's decode cache as a ring of the window's length;
-the port keeps full caches, which give the same answers while
-``prompt_len + max_new <= attn_window``, and raises beyond that. MoE, dense
-sliding windows and local/global mixes, ``qk_norm`` and M-RoPE raise
+MoE, local/global mixes (Gemma3), ``qk_norm`` and M-RoPE raise
 ``NotImplementedError`` until their slices (ROADMAP.md); the int8 KV cache
 has no switch in the port yet.
 
@@ -54,7 +62,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, embed_spec, mlp_apply,
                                        mlp_spec, rms_norm, unembed)
-from repro_torch.models.rope import positions_from_tokens, rope_angles
+from repro_torch.models.rope import angles_by_base, positions_from_tokens, rope_angles
 
 Entry = Union[Tuple[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 Cache = List[Entry]
@@ -63,8 +71,7 @@ Cache = List[Entry]
 def check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "family": cfg.family not in ("dense", "ssm", "hybrid"),
-        "attn_window / local_global_ratio (ring caches)":
-            bool(cfg.local_global_ratio) or (cfg.family == "dense" and bool(cfg.attn_window)),
+        "local_global_ratio (the Gemma3 slice)": bool(cfg.local_global_ratio),
         "qk_norm": cfg.qk_norm,
         "use_mrope": cfg.use_mrope,
         "act": cfg.act != "silu",
@@ -90,7 +97,7 @@ class Segment:
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
     L = cfg.n_layers
     if cfg.family == "dense":
-        return [Segment(("full",), L)]
+        return [Segment(("local" if cfg.attn_window else "full",), L)]
     if cfg.family == "ssm":
         return [Segment(("ssm",), L)]
     if cfg.family == "hybrid":
@@ -112,7 +119,15 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
-    return cfg.attn_window if kind == "shared_attn" else 0
+    return cfg.attn_window if kind in ("local", "shared_attn") else 0
+
+
+def _angles(cfg: ModelConfig, kinds: List[str], positions: torch.Tensor):
+    """kind -> its rope angle table (None for SSM layers)."""
+    table = angles_by_base(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_theta_local,
+                           kinds)
+    return lambda kind: (None if kind == "ssm" else
+                         table["local" if kind == "local" else "global"])
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +146,7 @@ def shared_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _layer_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    if kind == "full":
+    if kind in ("full", "local"):
         return shared_block_spec(cfg)
     if kind == "ssm":
         return {"ln1": _norm(cfg), "ssm": ssm_mod.ssm_spec(cfg)}
@@ -172,11 +187,10 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     B, S = tokens.shape
     kinds = layer_kinds(cfg)
     x = params["embed"][tokens]
-    angles = kv_lengths = None
-    if _has_attention(kinds):
-        angles = rope_angles(positions_from_tokens(B, S, device=tokens.device),
-                             cfg.head_dim, cfg.rope_theta)
-        kv_lengths = None if attn_valid is None else attn.prefix_lengths(attn_valid)
+    angles = _angles(cfg, kinds, positions_from_tokens(B, S, device=tokens.device))
+    kv_lengths = None
+    if _has_attention(kinds) and attn_valid is not None:
+        kv_lengths = attn.prefix_lengths(attn_valid)
     shared = params.get("shared")
     cache: Cache = []
     for kind, lp in zip(kinds, params["layers"]):
@@ -188,7 +202,7 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             continue
         p = shared if kind == "shared_attn" else lp
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(p["attn"], h, cfg, angles)
+        q, k, v = attn.qkv_project(p["attn"], h, cfg, angles(kind))
         o = attn.prefill_attention(q, k, v, window=_window(cfg, kind),
                                    kv_lengths=kv_lengths)
         x = _ffn(p, x + attn.out_project(p["attn"], o), cfg)
@@ -204,21 +218,18 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_cache_len(cfg: ModelConfig, cache_len: int) -> None:
-    windows = {_window(cfg, kind) for kind in layer_kinds(cfg)} - {0}
-    if any(cache_len > w for w in windows):
-        raise NotImplementedError(
-            f"{cfg.name}: a decode cache of {cache_len} positions outgrows the "
-            f"shared block's window ({min(windows)}); ring caches are not ported "
-            f"yet (see ROADMAP.md, queue 1)")
+def _slots(cfg: ModelConfig, kind: str, cache_len: int) -> int:
+    """Slots of an attention layer's decode cache: ``min(window, cache_len)``
+    for a windowed layer (the reference's ``cache_spec``), else cache_len."""
+    W = _window(cfg, kind)
+    return min(W, cache_len) if W else cache_len
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype,
                device: torch.device) -> Cache:
-    """Zeroed decode cache: K/V (B, cache_len, KV, hd) in the model dtype per
-    attention layer, h (B, H, P, N) fp32 and conv (B, W-1, C) in the model
-    dtype per SSM layer."""
-    _check_cache_len(cfg, cache_len)
+    """Zeroed decode cache: K/V (B, Sc, KV, hd) in the model dtype per
+    attention layer (Sc from :func:`_slots`), h (B, H, P, N) fp32 and conv
+    (B, W-1, C) in the model dtype per SSM layer."""
     cache: Cache = []
     for kind in layer_kinds(cfg):
         if kind == "ssm":
@@ -228,7 +239,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype,
                 "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, d_conv), dtype=dtype,
                                     device=device)})
         else:
-            shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+            shape = (batch, _slots(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim)
             cache.append((torch.zeros(shape, dtype=dtype, device=device),
                           torch.zeros(shape, dtype=dtype, device=device)))
     return cache
@@ -236,20 +247,29 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype,
 
 def decode_cache(cfg: ModelConfig, prefill_cache: Cache, cache_len: int) -> Cache:
     """The prefill cache as a decode cache of ``cache_len`` positions: each
-    attention entry's K/V copied into the front of a zeroed (B, cache_len,
-    KV, hd) pair; each SSM state carried over as it is."""
-    _check_cache_len(cfg, cache_len)
+    attention entry's K/V placed in a zeroed (B, Sc, KV, hd) pair, position t
+    at slot t (t % window in a ring, which keeps the last ``window`` padded
+    positions of a longer prefill); each SSM state carried over as it is."""
     out: Cache = []
-    for entry in prefill_cache:
+    for kind, entry in zip(layer_kinds(cfg), prefill_cache):
         if isinstance(entry, dict):
             out.append(entry)
             continue
         k, v = entry
         B, S, KV, hd = k.shape
-        kc = k.new_zeros((B, cache_len, KV, hd))
-        vc = v.new_zeros((B, cache_len, KV, hd))
-        kc[:, :S] = k
-        vc[:, :S] = v
+        Sc = _slots(cfg, kind, cache_len)
+        if S > Sc and not _window(cfg, kind):
+            raise ValueError(f"a decode cache of {cache_len} positions is shorter than "
+                             f"the prefill ({S})")
+        kc = k.new_zeros((B, Sc, KV, hd))
+        vc = v.new_zeros((B, Sc, KV, hd))
+        if S <= Sc:
+            kc[:, :S] = k
+            vc[:, :S] = v
+        else:            # a ring shorter than the prefill: its last Sc positions
+            slots = torch.arange(S - Sc, S, device=k.device) % Sc
+            kc[:, slots] = k[:, S - Sc:]
+            vc[:, slots] = v[:, S - Sc:]
         out.append((kc, vc))
     return out
 
@@ -258,15 +278,18 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Cache, pos: torch.Tensor, lengths: torch.Tensor):
     """One decode step for (B,) new tokens at positions ``pos`` (B,);
     ``lengths`` (B,) int32 is each row's valid cache length AFTER this token.
-    Writes the new K/V into ``cache`` in place and replaces its SSM states.
-    Returns (logits (B, V) fp32, hidden (B, d))."""
+    Writes the new K/V into ``cache`` in place (at ``pos % window`` in a
+    ring, attending to ``min(lengths, window)`` slots there) and replaces its
+    SSM states. Returns (logits (B, V) fp32, hidden (B, d))."""
     B = tokens.shape[0]
     kinds = layer_kinds(cfg)
     x = params["embed"][tokens][:, None]                        # (B, 1, d)
-    angles = (rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
-              if _has_attention(kinds) else None)
+    angles = _angles(cfg, kinds, pos[:, None])
     bidx = torch.arange(B, device=tokens.device)
     slot = pos.to(torch.long)
+    W = cfg.attn_window
+    # where a ring of W slots writes and how many it attends to: once a step
+    ring = (torch.remainder(slot, W), attn.ring_cache_valid(lengths, W)) if W else None
     shared = params.get("shared")
     for i, (kind, lp) in enumerate(zip(kinds, params["layers"])):
         if kind == "ssm":
@@ -276,11 +299,12 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             continue
         p = shared if kind == "shared_attn" else lp
         kc, vc = cache[i]
+        at, n = ring if _window(cfg, kind) and kc.shape[1] == W else (slot, lengths)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(p["attn"], h, cfg, angles)
-        kc[bidx, slot] = k[:, 0]
-        vc[bidx, slot] = v[:, 0]
-        o = attn.decode_attention(q, kc, vc, lengths)
+        q, k, v = attn.qkv_project(p["attn"], h, cfg, angles(kind))
+        kc[bidx, at] = k[:, 0]
+        vc[bidx, at] = v[:, 0]
+        o = attn.decode_attention(q, kc, vc, n)
         x = _ffn(p, x + attn.out_project(p["attn"], o), cfg)
     hidden = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     logits = unembed(hidden, params["embed"], params.get("head"))
@@ -299,17 +323,26 @@ def _train_layer(p, x, cfg: ModelConfig, angles):
     return _ffn(p, x + attn.out_project(p["attn"], o), cfg)
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config whose training forward is not ported yet."""
+    kinds = layer_kinds(cfg)
+    if "ssm" in kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: training a {cfg.family} model needs the reference's "
+            f"ssm_apply_train (repro/models/ssm.py:140), not ported yet "
+            f"(ROADMAP.md, queue 1 item 11)")
+    if any(kind != "full" for kind in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: training windowed layers needs blocked_attention's window, "
+            f"not ported yet (ROADMAP.md, queue 1 item 11)")
+
+
 def train_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
                   remat: bool = False):
     """Full-sequence causal pass for training, differentiable by autograd.
     Returns (logits (B, S, V) fp32, hidden (B, S, d)). With ``remat`` each
     layer keeps only its input and is recomputed in the backward pass."""
-    kinds = layer_kinds(cfg)
-    if any(kind != "full" for kind in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: training a {cfg.family} model needs the reference's "
-            f"ssm_apply_train (repro/models/ssm.py:140), not ported yet "
-            f"(ROADMAP.md, queue 1 item 11)")
+    check_trainable(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens]
     angles = rope_angles(positions_from_tokens(B, S, device=tokens.device),

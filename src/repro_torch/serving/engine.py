@@ -1362,7 +1362,8 @@ class RealEngine:
         # unembedding the gathered row gives the same logits
         cur_logits = self.model.unembed(self.params, last)
 
-        # K/V grown to Sp + max_new positions; SSM states carried over
+        # full K/V grown to Sp + max_new positions, windowed ones kept as
+        # rings of their window past it; SSM states carried over
         cache = self.model.decode_cache(prefill_cache, Sp + self.max_new)
         del prefill_cache
 

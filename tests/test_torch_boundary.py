@@ -62,7 +62,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     from repro_torch.core.baselines import run_method
     from repro_torch.data import make_scenario
     from repro_torch.data.pipeline import batch_iterator, make_lm_dataset
-    from repro_torch.launch import bench_fig1, bench_online, serve, table1, train
+    from repro_torch.launch import (bench_decode_step, bench_fig1, bench_online, serve,
+                                    serve_with_prod, table1, train, train_lm)
     from repro_torch.models.model_zoo import build_model
     from repro_torch.training.trainer import init_state, train_loop
     from repro_torch.common.config import TrainConfig
@@ -85,7 +86,12 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
              lambda: train_loop(model, TrainConfig(), iter([]), 1),
              lambda: train.main(["--steps", "1"]),
              lambda: bench_online.run(train_steps=1, n_prompts=2, max_new=2),
-             lambda: bench_fig1.run(n_noise=4, verbose=False)]
+             lambda: bench_fig1.run(n_noise=4, verbose=False),
+             lambda: serve.main(["--mode", "real", "--model", "qwen2.5-7b", "--n-requests", "2"]),
+             lambda: train_lm.main(["--steps", "1"]),
+             lambda: train_lm.main(["--arch", "yi-34b", "--steps", "1"]),
+             lambda: serve_with_prod.main(["--train-steps", "1"]),
+             lambda: bench_decode_step.main(["--model", "tiny-lm"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -50,11 +50,9 @@ def test_flash_attention_kernel_vs_plain(dtype, hd, causal, window):
     dev = cuda_device()
     B, S, H, KV = 3, 150, 8, 2
     q, k, v = _qkv(4, (B, S, H, hd), (B, S, KV, hd), dtype, dev)
-    # ragged key lengths, except with a window: a padded query row past
-    # len + window sees no key, where the kernel gives 0 and the plain
-    # version the mean of V (the serving path has no such row)
-    lens = (None if window else
-            torch.tensor([150, 97, 64], dtype=torch.int32, device=dev))
+    # ragged key lengths; with the window of 17, the padded query rows past
+    # len + 17 of rows 1 and 2 see no key and take the empty-row value
+    lens = torch.tensor([150, 97, 64], dtype=torch.int32, device=dev)
     got = ops.flash_attention(q, k, v, causal=causal, window=window, kv_lengths=lens)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_lengths=lens)
     close(got, want, dtype)
@@ -79,14 +77,32 @@ FLASH_BF16_CASES = {
     "G1": (2, 256, 8, 8, 64, True, 0, [256, 129]),
     "G4": (2, 256, 8, 2, 128, True, 0, [256, 129]),
     "G8": (2, 256, 8, 1, 32, True, 0, [256, 129]),
+    # the dense configs' groups: G=7 (Qwen2.5-7B 28/4, Yi-34B 56/8), G=48
+    # (Granite-20B, one KV head) and MiniCPM-2B's 36 heads of MHA
+    "qwen-G7-hd128": (2, 256, 28, 4, 128, True, 0, [256, 129]),
+    "qwen-G7-hd64": (2, 256, 28, 4, 64, True, 0, [256, 37]),
+    "yi-G7-hd128": (2, 300, 56, 8, 128, True, 0, [300, 100]),
+    "yi-G7-hd64": (2, 300, 56, 8, 64, True, 0, [1, 300]),
+    "granite-G48-hd128": (2, 256, 48, 1, 128, True, 0, [256, 65]),
+    "granite-G48-hd64": (2, 256, 48, 1, 64, True, 0, [200, 256]),
+    "minicpm-H36-hd64": (2, 300, 36, 36, 64, True, 0, [300, 129]),
+    "minicpm-H36-hd128": (2, 300, 36, 36, 128, True, 0, [37, 300]),
+    # a window with ragged lengths: padded query rows past len + window see
+    # no key and take the reference's empty-row value (sum V / Skv_pad; 600
+    # keys pad to 1024, 1100 to 1536), at both tile widths and in a batch
+    # whose empty rows fill whole query tiles
+    "window-empty-rows-hd64": (3, 600, 8, 2, 64, True, 64, [600, 5, 300]),
+    "window-empty-rows-hd128": (2, 700, 8, 1, 128, True, 100, [700, 3]),
+    "window-empty-rows-hd32": (2, 333, 4, 4, 32, True, 40, [2, 333]),
+    "zamba2-window-short-row": (2, 1100, 32, 32, 64, True, 512, [1100, 20]),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(FLASH_BF16_CASES))
 def test_flash_attention_bf16_kernel_vs_plain(case):
-    """Every query row here sees at least one key, so the kernel's 0 for a
-    row with none never enters the comparison."""
+    """The kernel against the plain version, rows with no valid key
+    included (both give them the reference's empty-row value)."""
     dev = cuda_device()
     B, S, H, KV, hd, causal, window, lens = FLASH_BF16_CASES[case]
     q, k, v = _qkv(8, (B, S, H, hd), (B, S, KV, hd), BF16, dev)
@@ -139,6 +155,14 @@ DECODE_CASES = {
     "long-G16": (2, 8192, 16, 1, 128, [8192, 5000]),       # many splits a row
     "long-G4": (1, 8192, 32, 8, 128, [7777]),
     "long-G1": (2, 8192, 8, 8, 64, [8192, 1]),
+    # the dense configs' decode shapes (Sp=512 + 64 new), G=7 and G=48, and
+    # MiniCPM-2B's MHA
+    "qwen-serve-G7": (8, 576, 28, 4, 128, SERVE_LENS),
+    "yi-serve-G7": (8, 576, 56, 8, 128, SERVE_LENS),
+    "granite-serve-G48": (8, 576, 48, 1, 128, SERVE_LENS),
+    "minicpm-serve-H36": (8, 576, 36, 36, 64, SERVE_LENS),
+    # Zamba2's shared block on its 8,192-slot rings: lengths min(len, W)
+    "zamba2-ring": (4, 8192, 32, 32, 64, [8192, 8192, 8192, 577]),
 }
 
 
@@ -268,7 +292,8 @@ def _head_args(B, d, hid, K, dev):
                          + [(8, 4100, 512, 64), (513, 4100, 512, 64), (8, 96, 512, 64)]
                          + [(B, 64, 512, 64) for B in (200, 350, 700, 1319)]
                          + [(B, 128, 512, 24) for B in (48, 240, 512)]
-                         + [(512, 4096, 512, 24)])
+                         + [(512, 4096, 512, 24)]
+                         + [(B, d, 512, 64) for B in (8, 512) for d in (2304, 3584, 6144, 7168)])
 @pytest.mark.parametrize("qs", [None, QS], ids=["median", "qs"])
 def test_prod_head_kernel_vs_plain(B, d, hid, K, qs):
     """Small heads, then the served d (Mamba2, Zamba2, Llama) at batches on
@@ -278,7 +303,8 @@ def test_prod_head_kernel_vs_plain(B, d, hid, K, qs):
     with ``--full``), and the online heads of ``launch/bench_online.py``
     (tiny-lm's d=128, K=24: the static head on 48 prompts, the online head
     on a few hundred decode states) and of the Llama online phase (d=4096,
-    K=24, 512 states). The d-splits are summed in a fixed
+    K=24, 512 states), then the dense configs' widths (MiniCPM-2B 2304,
+    Qwen2.5-7B 3584, Granite-20B 6144, Yi-34B 7168). The d-splits are summed in a fixed
     order, so a second call agrees with the first bit for bit."""
     args = _head_args(B, d, hid, K, cuda_device())
     p_got, q_got = ops.prod_head(*args, qs=qs)

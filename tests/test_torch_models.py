@@ -55,7 +55,8 @@ def _prompts():
     return np.where(valid, toks, 0), valid
 
 
-@pytest.mark.parametrize("name", ["tiny-lm", "llama3-8b", "mamba2-130m", "zamba2-1.2b"])
+@pytest.mark.parametrize("name", ["tiny-lm", "llama3-8b", "mamba2-130m", "zamba2-1.2b",
+                                  "qwen2.5-7b", "granite-20b", "minicpm-2b", "yi-34b"])
 def test_configs_are_copies_of_the_reference(name):
     mine, theirs = get_config(name), jget_config(name)
     for f in dataclasses.fields(mine):
@@ -127,7 +128,7 @@ def test_decode_steps_teacher_forced(models):
         jlen, tlen = jlen + 1, tlen + 1
 
 
-@pytest.mark.parametrize("override", [dict(family="moe"), dict(attn_window=16),
+@pytest.mark.parametrize("override", [dict(family="moe"), dict(local_global_ratio=1),
                                       dict(qk_norm=True)])
 def test_unported_model_features_raise(override):
     cfg = get_config("tiny-lm").with_overrides(**override)

@@ -14,8 +14,10 @@
 Model tolerance as in test_torch_models.py: 1e-4 relative to each tensor's
 largest magnitude. The reference's prefill scans in chunks of 16, the port's
 plain version step by step; both are fp32. S + T stays within the reduced
-window (16), and S differs from the batch (3) and the SSM head count (4), so
-the reference engine's ``_grow_cache`` leaves every SSM state alone.
+window (16), and S differs from the batch (3), the SSM head count (4) and the
+window, so the reference engine's ``_grow_cache`` leaves every SSM state and
+ring alone; one test decodes past the window on the shared block's ring
+(tests/test_torch_ring.py holds rings from longer prefills).
 """
 
 import numpy as np
@@ -241,13 +243,14 @@ def test_decode_steps_teacher_forced(models):
 @pytest.fixture(scope="module")
 def zamba():
     jcfg = _reduced("zamba2-1.2b")
-    jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    jm = jbuild_model(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
     cfg = port_config(jcfg)
-    return build_model(cfg), from_jax_params(np_tree(jparams), cfg, device="cpu")
+    return build_model(cfg), from_jax_params(np_tree(jparams), cfg, device="cpu"), jm, jparams
 
 
 def test_real_engine_generates_on_reduced_zamba2(zamba):
-    m, params = zamba
+    m, params, _, _ = zamba
     toks, valid = _prompts(m.cfg.vocab_size)
     eng = RealEngine(m, params, max_new=T)
     out = eng.generate(toks, LENS, torch.Generator().manual_seed(0))
@@ -260,8 +263,36 @@ def test_real_engine_generates_on_reduced_zamba2(zamba):
 
 
 def test_decode_past_the_shared_window_raises(zamba):
-    m, params = zamba
-    toks, _ = _prompts(m.cfg.vocab_size)
-    eng = RealEngine(m, params, max_new=m.cfg.attn_window - S + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate(toks, LENS, torch.Generator().manual_seed(0))
+    """Past the shared block's window the decode no longer raises: the
+    block's cache is a ring of the window (16), and teacher-forced steps
+    that cross it follow the reference's ring; the engine then generates
+    past the window."""
+    m, params, jm, jparams = zamba
+    W = m.cfg.attn_window
+    T2 = W - S + 3
+    toks, valid = _prompts(m.cfg.vocab_size)
+    B = len(LENS)
+    rt = Runtime.local()
+    _, _, jcache, _ = jm.prefill(
+        jparams, {"tokens": jnp.asarray(toks), "attn_valid": jnp.asarray(valid)}, rt)
+    jcache = JRealEngine._grow_cache(None, jcache, S + T2, S)
+    _, _, cache = m.prefill(params, torch.from_numpy(toks).long(),
+                            attn_valid=torch.from_numpy(valid))
+    cache = m.decode_cache(cache, S + T2)
+    assert [e[0].shape[1] for e in cache if not isinstance(e, dict)] == [W] * 2
+    forced = np.random.default_rng(1).integers(3, m.cfg.vocab_size, (T2, B)).astype(np.int32)
+    jlen = jnp.asarray(LENS)
+    tlen = torch.from_numpy(LENS)
+    for t in range(T2):
+        jlogits, jhid, jcache = jm.decode_step(
+            jparams, {"tokens": jnp.asarray(forced[t]), "pos": jlen, "lengths": jlen + 1},
+            jcache, rt)
+        logits, hid = m.decode_step(params, torch.from_numpy(forced[t]).long(), cache,
+                                    tlen, tlen + 1)
+        near(logits, jlogits)
+        near(hid, jhid)
+        jlen, tlen = jlen + 1, tlen + 1
+    assert int(tlen.max()) > W
+    eng = RealEngine(m, params, max_new=T2, eos_id=-1)
+    out = eng.generate(toks, LENS, torch.Generator().manual_seed(0))
+    assert (out["lengths"] == T2).all()
