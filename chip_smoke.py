@@ -28,7 +28,12 @@ script exits non-zero without its result line:
    and its device time under other splits (``split_sweep``: the library's
    plan against the others, each output held within one bf16 step of the
    plain version's); the fp32 scan with no decay is held against an fp64
-   recurrence, beside the plain version's error there;
+   recurrence, beside the plain version's error there. Then Gemma3-27B's
+   head width, hd=168 (``gemma3_kernel_checks``): flash at B=8, S=512 and
+   at S=1,100 with its 1,024-key window, decode at B=8, Sc=576 (with the
+   split sweep) and on 1,024-slot rings, and fp32 flash and decode at a
+   small shape, each with a second call bit-identical and SDPA's time and
+   backend beside it;
 4. serve, once per model, each at full width and depth with seeded random
    weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
    (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
@@ -41,7 +46,11 @@ script exits non-zero without its result line:
    - Qwen2.5-7B (28 layers, G=7), r=4; Granite-20B (52 layers, 48 query
      heads on one KV head), r=2; MiniCPM-2B (40 layers, MHA, tied 122,753-
      token vocabulary), r=2; Yi-34B (60 layers, G=7, d=7168; 68.8 GB of
-     weights), r=2: flash, decode and head.
+     weights), r=2; Gemma3-27B (62 layers in 10 blocks of 5 local + 1
+     full and 2 local, window 1,024, qk_norm, the tanh-GELU gated MLP,
+     hd=168, d=5376, a tied 262,144-token vocabulary; 28.29 B parameters in
+     its leaves against param_count()'s 21.12 B), r=2: flash, decode and
+     head.
    The launch counts are set to 0 before each model's run and read after it;
    each kernel the model's path runs must have risen, and equal
    ``expected_launches`` when no row met EOS. The head kernel is then
@@ -55,7 +64,10 @@ script exits non-zero without its result line:
    query rows with no valid key), its flash, decode and scan calls held
    against their plain versions on the phase's own inputs (flash and decode
    within 2e-2 of sum p|v| on V as served; two planted flash faults must
-   fail that check);
+   fail that check); gemma3 long: Gemma3-27B past its 1,024-token window
+   (``gemma3_long_phase``: 4 prompts of 900-1,100 tokens, the 52 local
+   layers decoding on rings), the flash and decode calls of one local and
+   one full layer held against their plain versions by the same criterion;
 5. table1: the paper's Table 1, fast profile (8 Track-A settings x 7
    methods), every head trained on the card; its claims must equal the
    reference's, and prod_head is the one kernel launched (32 times);
@@ -644,6 +656,170 @@ def kernel_checks(torch, ref, kernels):
     return rows
 
 
+def sdpa_backend(torch, *args, **kwargs) -> str:
+    """The backend PyTorch's SDPA picks for these inputs (its private
+    ``_fused_sdp_choice``), or why that could not be read."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
+    except Exception as e:  # a private API: report, do not fail the run
+        return f"not determined ({type(e).__name__})"
+
+
+G3_SERVE_LENS = (512, 300, 257, 480, 399, 511, 266, 448)
+
+
+def gemma3_kernel_checks(torch, ref, kernels):
+    """Phase 3, Gemma3-27B's head width (hd=168, 32 query heads on 16 KV
+    heads): both attention kernels against their plain versions (bf16 2e-2,
+    fp32 2e-5, as tests/test_kernels.py), a second call bit-identical, timed
+    eagerly and from a CUDA graph beside the plain version and SDPA on the
+    same inputs (its backend printed), with the bound computed from the true
+    hd of 168 (the kernel's tiles are 192 columns wide: 14% more P.V work
+    than the bound counts). Flash at the serve phases' B=8, S=512 with their
+    ragged lengths; at B=4, S=1,100 with the 1,024-key window (a 20-token
+    row whose padded queries past 1,044 have no valid key); decode at B=8,
+    Sc=576 (G=2, with the split sweep) and on 1,024-slot rings; fp32 flash
+    and decode at a small shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import plan as decode_plan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    bf, f32 = torch.bfloat16, torch.float32
+    H, KV, hd = 32, 16, 168
+    rows = []
+
+    def flash_row(B, S, Hq, Kv, dtype, lens, window, label):
+        tol = 2e-2 if dtype == bf else 2e-5
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn(B, S, Hq, hd, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, S, Kv, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, S, Kv, hd, generator=g, device=dev).to(dtype)
+        call = lambda: kernels["flash_attention"](q, k, v, causal=True, window=window,
+                                                  kv_lengths=lens)
+        out, again = call(), call()
+        plain = lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                                kv_lengths=lens)
+        want = plain()
+        torch.cuda.synchronize()
+        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention hd=168 {label}: max err {max_err(torch, out, want)}")
+        check(torch.equal(out, again), f"flash_attention hd=168 {label}: two calls differ")
+        G = Hq // Kv
+        qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
+                      v.repeat_interleave(G, dim=2).transpose(1, 2))
+        pos = torch.arange(S, device=dev)
+        allowed = pos[None, :] <= pos[:, None]
+        if window:
+            allowed = allowed & (pos[:, None] - pos[None, :] < window)
+        mask = (allowed[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        backend = sdpa_backend(torch, qt, kt, vt, mask)
+        pairs = int(mask.sum())
+        eb = 2 if dtype == bf else 4
+        nbytes = eb * (2 * B * S * Hq * hd + 2 * int(lens.long().sum()) * Kv * hd) + 4 * B
+        flops = 4 * hd * Hq * pairs
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == bf else FP32_FLOPS)
+        empty = int((~mask.any(-1)).sum())
+        print(f"flash_attention hd=168 {label}: SDPA backend {backend}; {pairs} (query, key) "
+              f"pairs, {empty} query rows with no valid key (padded rows included)")
+        rows.append({"name": "flash_attention",
+                     "shape": f"B={B} S={S} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} causal "
+                              f"ragged{f' window={window}' if window else ''} ({label})",
+                     "max_abs_err": max_err(torch, out, want),
+                     "ms": time_ms(torch, call), "plain_ms": time_ms(torch, plain, iters=3),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, sdpa),
+                     "bytes": nbytes, "flops": flops, "device_ms": device_time_ms(torch, call),
+                     "library_device_ms": device_time_ms(torch, sdpa),
+                     "library_backend": backend})
+
+    flash_row(8, 512, H, KV, bf, G3_SERVE_LENS, 0, "gemma3 serve")
+    flash_row(4, 1100, H, KV, bf, (1100, 1030, 900, 20), 1024, "gemma3 window")
+    flash_row(2, 128, 4, 2, f32, (128, 77), 0, "fp32")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def decode_row(B, Sc, Hq, Kv, dtype, lens, label, sweep=False):
+        tol = 2e-2 if dtype == bf else 2e-5
+        dl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        qd = torch.randn(B, Hq, hd, generator=g, device=dev).to(dtype)
+        kc = torch.randn(B, Sc, Kv, hd, generator=g, device=dev).to(dtype)
+        vc = torch.randn(B, Sc, Kv, hd, generator=g, device=dev).to(dtype)
+        call = lambda: kernels["decode_attention"](qd, kc, vc, dl)
+        out, again = call(), call()
+        plain = lambda: ref.decode_attention_ref(qd, kc, vc, dl)
+        want = plain()
+        torch.cuda.synchronize()
+        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+              f"decode_attention hd=168 {label}: max err {max_err(torch, out, want)}")
+        check(torch.equal(out, again), f"decode_attention hd=168 {label}: two calls differ")
+        qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
+        sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask,
+                                                      enable_gqa=True)
+        check(torch.allclose(sdpa()[:, :, 0].float(), want.float(), rtol=tol, atol=tol),
+              f"SDPA yardstick hd=168 {label} disagrees with the plain version")
+        backend = sdpa_backend(torch, qdt, kct, vct, dmask, enable_gqa=True)
+        n_keys = int(dl.long().sum())
+        eb = 2 if dtype == bf else 4
+        nbytes = eb * (2 * B * Hq * hd + 2 * n_keys * Kv * hd) + 4 * B
+        flops = 4 * hd * Hq * n_keys
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == bf else FP32_FLOPS)
+        row = {"name": "decode_attention",
+               "shape": f"B={B} Sc={Sc} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} ragged ({label})",
+               "max_abs_err": max_err(torch, out, want), "ms": time_ms(torch, call, iters=50),
+               "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(torch, sdpa, iters=50), "bytes": nbytes, "flops": flops,
+               "device_ms": device_time_ms(torch, call, iters=50),
+               "library_device_ms": device_time_ms(torch, sdpa, iters=50),
+               "library_backend": backend,
+               "plan": list(decode_plan(dev, B, Sc, Hq, Kv, hd, dtype))}
+        if dtype == bf:
+            row["cold_ms"], row["cold_device_ms"] = time_ms_cold(torch, call, flush)
+            row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(torch, sdpa,
+                                                                                 flush)
+        G = Hq // Kv
+        n_blocks = row["plan"][1] * B * Kv * -(-G // row["plan"][0])
+        print(f"decode_attention {row['shape']}: SDPA backend {backend}; plan {row['plan']} "
+              f"(head tile, splits, keys a split): {n_blocks} blocks")
+        if sweep:
+            # other splits, each within one bf16 step of the plain version (as
+            # kernel_checks' sweep), a second call bit-identical
+            row["split_sweep"] = []
+            gt = row["plan"][0]
+            for p in sorted({tuple(row["plan"])} | {
+                    (gt, n, c) for n, c in ((1, 576), (2, 320), (3, 192), (5, 128), (6, 96),
+                                            (9, 64), (18, 32))}):
+                forced = lambda: kernels["decode_attention"](qd, kc, vc, dl, with_plan=p)
+                got, got2 = forced(), forced()
+                torch.cuda.synchronize()
+                step = torch.exp2(torch.floor(torch.log2(
+                    want.float().abs().clamp_min(1e-30))) - 7)
+                check(bool(((got.float() - want.float()).abs() <= step + 2e-6).all()),
+                      f"decode_attention hd=168 plan {p}: more than one bf16 step from the "
+                      f"plain version (max|err| {max_err(torch, got, want)})")
+                check(torch.equal(got, got2), f"decode_attention hd=168 plan {p}: two calls differ")
+                row["split_sweep"].append({
+                    "plan": list(p), "device_ms": device_time_ms(torch, forced, iters=50),
+                    "cold_device_ms": time_ms_cold(torch, forced, flush)[1],
+                    "max_abs_err": max_err(torch, got, want)})
+            print(f"decode_attention {row['shape']}: other splits: " + "; ".join(
+                f"{e['plan']} {e['device_ms']:.4f} ms warm, {e['cold_device_ms']:.4f} cold, "
+                f"max|err| {e['max_abs_err']:.3g}" for e in row["split_sweep"]))
+        rows.append(row)
+
+    decode_row(8, 576, H, KV, bf, (576, 301, 258, 540, 400, 575, 267, 449), "gemma3 serve",
+               sweep=True)
+    decode_row(4, 1024, H, KV, bf, (1024, 1024, 1024, 577), "gemma3 ring")
+    decode_row(4, 100, 4, 2, f32, (100, 1, 57, 33), "fp32")
+    del flush
+    report_rows(rows)
+    return rows
+
+
 def report_rows(rows) -> None:
     """Achieved rates (bytes and operations) and the share of the bound, of
     the eager call and of the device time, added to each row and printed."""
@@ -686,6 +862,7 @@ SERVE_PHASES = (
     ("granite-20b", 2, DENSE, False),
     ("minicpm-2b", 2, DENSE, False),
     ("yi-34b", 2, DENSE, True),
+    ("gemma3-27b", 2, DENSE, True),
 )
 
 
@@ -757,7 +934,9 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
     kinds = layer_kinds(cfg)
     print(f"serve {name}: {n_params / 1e9:.3f}B params ({cfg.dtype}, d={cfg.d_model}, "
           f"{sum(k == 'ssm' for k in kinds)} SSM + {sum(k != 'ssm' for k in kinds)} attention "
-          f"layers) initialised in {time.perf_counter() - t0:.1f} s")
+          f"layers, {sum(k == 'local' for k in kinds)} of them windowed) initialised in "
+          f"{time.perf_counter() - t0:.1f} s; param_count() {cfg.param_count() / 1e9:.3f}B "
+          f"(the reference's formula, which counts a gelu_gated MLP as two matrices)")
 
     B, Sp, max_new = 8, 512, 64
     prompts, plens = served_prompts(cfg.vocab_size)
@@ -1540,21 +1719,33 @@ def online_phase(torch, ref, counters):
     return {k: launches_a[k] + launches_b[k] for k in counters}
 
 
-class capture:
-    """Within the block, ``ops.<name>`` records the inputs of its first call
-    (tensors cloned) and returns what the kernel returns; restored after."""
+def held(got, want, scale):
+    """Held on V as served: (the worst |got - want| / (2e-2 * scale), the
+    elements beyond 1), ``scale`` being sum_k p_k |v_k| (the plain version
+    on |v|): a bf16 softmax-weighted sum errs in proportion to that sum,
+    not to |o|, which cancellation can make small."""
+    r = (got.float() - want.float()).abs() / (2e-2 * scale.float()).clamp_min(1e-30)
+    return float(r.max()), int((r > 1).sum())
 
-    def __init__(self, ops, name: str):
-        self.ops, self.name, self.args, self.kwargs = ops, name, None, None
+
+class capture:
+    """Within the block, ``ops.<name>`` records the inputs of its calls
+    numbered in ``at`` (0 = the first; tensors cloned) in ``calls[i] =
+    (args, kwargs)`` and returns what the kernel returns; restored after.
+    ``args`` and ``kwargs`` are those of the first recorded call."""
+
+    def __init__(self, ops, name: str, at=(0,)):
+        self.ops, self.name, self.at, self.calls, self.n = ops, name, set(at), {}, 0
 
     def __enter__(self):
         self.orig = getattr(self.ops, self.name)
 
         def rec(*args, **kwargs):
-            if self.args is None:
+            if self.n in self.at:
                 clone = lambda t: t.clone() if hasattr(t, "clone") else t
-                self.args = [clone(a) for a in args]
-                self.kwargs = {k: clone(v) for k, v in kwargs.items()}
+                self.calls[self.n] = ([clone(a) for a in args],
+                                      {k: clone(v) for k, v in kwargs.items()})
+            self.n += 1
             return self.orig(*args, **kwargs)
 
         setattr(self.ops, self.name, rec)
@@ -1562,6 +1753,14 @@ class capture:
 
     def __exit__(self, *exc):
         setattr(self.ops, self.name, self.orig)
+
+    @property
+    def args(self):
+        return self.calls[min(self.calls)][0]
+
+    @property
+    def kwargs(self):
+        return self.calls[min(self.calls)][1]
 
 
 LONG_LENS = (8960, 8704, 8300, 512)
@@ -1669,11 +1868,6 @@ def long_phase(torch, ref, counters):
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     rows = []
-
-    def held(got, want, scale):
-        """(the worst |got - want| / (2e-2 * scale), elements beyond 1)."""
-        r = (got.float() - want.float()).abs() / (2e-2 * scale.float()).clamp_min(1e-30)
-        return float(r.max()), int((r > 1).sum())
 
     # flash, on the first shared block's prefill inputs, v as served
     q, k, v = fl.args
@@ -1799,6 +1993,123 @@ def long_phase(torch, ref, counters):
     return launches
 
 
+G3_LONG_LENS = (1100, 1030, 960, 900)
+
+
+def gemma3_long_phase(torch, ref, counters):
+    """Gemma3-27B past its 1,024-token window at full width and depth (62
+    layers, bf16): 4 prompts of 1,100 / 1,030 / 960 / 900 tokens right-padded
+    to 1,100, max_new=32, one generation. The 52 local layers take the
+    window in the prefill's flash calls and decode on 1,024-slot rings built
+    from the prefill's last 1,024 padded positions (lengths min(len, W));
+    the 10 full layers keep the whole cache. Then the flash and decode calls
+    of the first local layer and the first full one (layers 0 and 5) are
+    captured in a second prefill and decode step (not counted) and held
+    against their plain versions on V as served, each element within 2e-2
+    of sum_k p_k |v_k| (``held``, as ``long_phase``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serving.engine import RealEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config("gemma3-27b")
+    W = cfg.attn_window
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=dev)
+    kinds = layer_kinds(cfg)
+    B, Sp, max_new = len(G3_LONG_LENS), max(G3_LONG_LENS), 32
+    plens = np.array(G3_LONG_LENS)
+    rng = np.random.default_rng(2)
+    prompts = np.zeros((B, Sp), np.int64)
+    for i, n in enumerate(plens):
+        prompts[i, :n] = rng.integers(3, cfg.vocab_size, size=n)
+    eng = RealEngine(model, params, max_new=max_new)
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, plens, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    lens, phi = out["lengths"], out["phi"]
+    check(phi.shape == (B, cfg.d_model) and np.isfinite(phi).all(),
+          "gemma3 long: phi shape/finite")
+    check(lens.min() >= 1 and lens.max() <= max_new, "gemma3 long: lengths range")
+    check(launches["flash_attention"] == len(kinds) and launches["ssd_scan"] == 0
+          and launches["prod_head"] == 0, f"gemma3 long: prefill launches {launches}")
+    check(launches["decode_attention"] > 0, f"gemma3 long: decode launches {launches}")
+    if lens.min() == max_new:
+        check(launches["decode_attention"] == max_new * len(kinds),
+              f"gemma3 long: decode launches {launches}")
+    n_tok = int(lens.sum())
+    print(f"gemma3 long: B={B} prompts {list(G3_LONG_LENS)} padded to {Sp}, window {W} on "
+          f"{kinds.count('local')} of {len(kinds)} layers, max_new={max_new}: {gen_s:.2f} s, "
+          f"{n_tok} generated tokens (prefill included); lengths {lens.tolist()}; launches "
+          f"{json.dumps(launches)}")
+
+    tokens = torch.as_tensor(prompts, device=dev)
+    lens_t = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+    valid = torch.arange(Sp, device=dev)[None, :] < lens_t[:, None]
+    nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
+    full = kinds.index("full")
+    with torch.no_grad():
+        prefill = lambda: model.prefill(params, tokens, attn_valid=valid, logits_mode="none")
+        prefill_ms = time_ms(torch, prefill, iters=2, warmup=1)
+        with capture(ops, "flash_attention", at=(0, full)) as fl:
+            _, _, pcache = prefill()
+        cache = model.decode_cache(pcache, Sp + max_new)
+        del pcache
+        slots = [e[0].shape[1] for e in cache]
+        check(slots == [W if k == "local" else Sp + max_new for k in kinds],
+              f"gemma3 long: cache slots {slots}")
+        step = lambda: model.decode_step(params, nxt, cache, lens_t, lens_t + 1)
+        with capture(ops, "decode_attention", at=(0, full)) as dc:
+            step()
+        step_ms = time_ms(torch, step, iters=5, warmup=1)
+    print(f"gemma3 long: prefill (B={B}, S={Sp}) {prefill_ms:.1f} ms; decode step, local "
+          f"layers on rings, {step_ms:.2f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    for i, kind in ((0, "local"), (full, "full")):
+        (q, k, v), kw = fl.calls[i]
+        window = W if kind == "local" else 0
+        check(kw["window"] == window, f"gemma3 long: layer {i} flash window {kw['window']}")
+        flash = lambda vv: counters["flash_attention"](q, k, vv, causal=True, window=window,
+                                                       kv_lengths=kw["kv_lengths"])
+        plain = lambda vv: ref.flash_attention_ref(q, k, vv, causal=True, window=window,
+                                                   kv_lengths=kw["kv_lengths"])
+        got, want = flash(v), plain(v)
+        worst, beyond = held(got, want, plain(v.abs()))
+        torch.cuda.synchronize()
+        print(f"gemma3 long: layer {i} ({kind}) flash B={B} S={Sp} hd={cfg.head_dim}, v as "
+              f"served (max|v| {float(v.float().abs().max()):.3g}): max|kernel-plain| "
+              f"{max_err(torch, got, want):.3g}, worst error {worst:.3g} of its tolerance "
+              f"2e-2 * sum p|v|")
+        check(beyond == 0, f"gemma3 long: layer {i} flash {beyond} elements beyond "
+              f"2e-2 * sum p|v| (worst {worst:.3g} of it)")
+        (qd, kc, vc, dl), _ = dc.calls[i]
+        want_len = [min(n + 1, W) if kind == "local" else n + 1 for n in G3_LONG_LENS]
+        check(dl.tolist() == want_len and kc.shape[1] == slots[i],
+              f"gemma3 long: layer {i} decode lengths {dl.tolist()} on {kc.shape[1]} slots")
+        got = counters["decode_attention"](qd, kc, vc, dl)
+        want = ref.decode_attention_ref(qd, kc, vc, dl)
+        worst, beyond = held(got, want, ref.decode_attention_ref(qd, kc, vc.abs(), dl))
+        torch.cuda.synchronize()
+        print(f"gemma3 long: layer {i} ({kind}) decode on {kc.shape[1]} slots, lengths "
+              f"{dl.tolist()}: max|kernel-plain| {max_err(torch, got, want):.3g}, worst error "
+              f"{worst:.3g} of its tolerance 2e-2 * sum p|v|")
+        check(beyond == 0, f"gemma3 long: layer {i} decode {beyond} elements beyond "
+              f"2e-2 * sum p|v| (worst {worst:.3g} of it)")
+    return launches
+
+
 def e2e_phase(torch, counters):
     """``launch/serve_with_prod.py`` at its defaults on the card (tiny-lm
     trained 300 steps, 64 prompts x 8 generations of up to 96 tokens, the
@@ -1916,6 +2227,7 @@ def main() -> int:
     kernels = {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
                "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
     rows = kernel_checks(torch, ref, kernels)
+    rows += gemma3_kernel_checks(torch, ref, kernels)
     by_phase = {}
     for i, (name, r, on_path, profile) in enumerate(SERVE_PHASES):
         by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0),
@@ -1923,6 +2235,9 @@ def main() -> int:
         gc.collect()                 # each model's weights go before the next's
         torch.cuda.empty_cache()
     by_phase["long"] = long_phase(torch, ref, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_phase["gemma3 long"] = gemma3_long_phase(torch, ref, kernels)
     gc.collect()
     torch.cuda.empty_cache()
     by_phase["table1"] = table1_phase(torch, kernels)

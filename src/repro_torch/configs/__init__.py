@@ -8,8 +8,8 @@ from __future__ import annotations
 from typing import List
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.configs import (granite_20b, llama3_8b, mamba2_130m, minicpm_2b,
-                                 qwen25_7b, tiny_lm, yi_34b, zamba2_1p2b)
+from repro_torch.configs import (gemma3_27b, granite_20b, llama3_8b, mamba2_130m,
+                                 minicpm_2b, qwen25_7b, tiny_lm, yi_34b, zamba2_1p2b)
 
 _MAKERS = {
     "llama3-8b": llama3_8b.make_config,
@@ -17,6 +17,7 @@ _MAKERS = {
     "granite-20b": granite_20b.make_config,
     "minicpm-2b": minicpm_2b.make_config,
     "yi-34b": yi_34b.make_config,
+    "gemma3-27b": gemma3_27b.make_config,
     "tiny-lm": tiny_lm.make_config,
     "mamba2-130m": mamba2_130m.make_config,
     "zamba2-1.2b": zamba2_1p2b.make_config,

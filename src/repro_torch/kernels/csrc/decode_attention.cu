@@ -33,6 +33,13 @@
 //    log2(e)/sqrt(hd)) and summed over the row's hd/8 lanes by shuffles;
 //    each thread keeps an online softmax (m, l) and G x 8 fp32 accumulators
 //    for the rows it reads, in registers. P.V uses the same lane mapping.
+//  * hd = 168 (Gemma3) is 21 chunks of 8, which divide neither a warp nor a
+//    block. There a key row is an aligned group of 8 lanes, 7 of which own
+//    24 channels (three 16-byte loads of bf16, six of fp32) and the 8th
+//    reads nothing and adds 0 to the group's shuffles: 4 rows a warp, 16 a
+//    block, 2 rows a thread in flight in bf16 (1 in fp32), 21 KB a block.
+//    A block attends at most 2 heads (GT <= 2) there, which keeps q and
+//    the accumulators (2 x 24 x 2 fp32) in registers.
 //  * At the end the block's row groups meet once in shared memory. A block
 //    that is its row's only split writes the output. Otherwise it writes its
 //    partial (m, l, acc) to the wrapper's fp32 workspace and counts itself
@@ -53,16 +60,29 @@ constexpr int kPassesPerBlock = 3;   // passes of keys a split aims for
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// key rows a thread has in flight: 4 in bf16, 2 in fp32 (16 KB a block)
-__host__ __device__ constexpr int rows_in_flight(int elem_bytes) { return elem_bytes == 2 ? 4 : 2; }
+// Lanes of a key row (a power of two: the shuffles stay inside it) and
+// channels a lane owns: hd/8 lanes of 8 channels, or 8 lanes (7 loading) of
+// 24 channels at hd = 168.
+__host__ __device__ constexpr int row_lanes(int hd) { return hd == 168 ? 8 : hd / 8; }
+__host__ __device__ constexpr int lane_chans(int hd) { return hd == 168 ? 24 : 8; }
 
-// Key rows a block reads in one pass: hd/8 threads a row.
-__host__ __device__ constexpr int rows_per_pass(int hd, int elem_bytes) {
-  return kThreads / (hd / 8) * rows_in_flight(elem_bytes);
+// key rows a thread has in flight: 4 in bf16, 2 in fp32 (16 KB a block);
+// 2 and 1 at hd = 168 (21 KB)
+__host__ __device__ constexpr int rows_in_flight(int hd, int elem_bytes) {
+  return (elem_bytes == 2 ? 4 : 2) / (lane_chans(hd) == 8 ? 1 : 2);
 }
 
+// Key rows a block reads in one pass.
+__host__ __device__ constexpr int rows_per_pass(int hd, int elem_bytes) {
+  return kThreads / row_lanes(hd) * rows_in_flight(hd, elem_bytes);
+}
+
+// Query heads a block attends at most (the registers of q and the accumulators).
+__host__ __device__ constexpr int max_head_tile(int hd) { return hd == 168 ? 2 : 8; }
+
 struct Plan {
-  int gt;        // query heads a block attends: G rounded up to a power of two, at most 8
+  int gt;        // query heads a block attends: G rounded up to a power of two, at most
+                 // max_head_tile
   int n_splits;  // splits of the cache
   int chunk;     // keys a split, a whole number of passes
 };
@@ -77,7 +97,7 @@ struct Plan {
 Plan plan(int B, int KV, int G, int Sc, int hd, int elem_bytes) {
   Plan p;
   p.gt = 1;
-  while (p.gt < G && p.gt < 8) p.gt *= 2;
+  while (p.gt < G && p.gt < max_head_tile(hd)) p.gt *= 2;
   const int step = rows_per_pass(hd, elem_bytes);
   const long long tiles = (long long)B * KV * ceil_div(G, p.gt);   // blocks a split
   const int fill = (int)((sm_count() + tiles - 1) / tiles);
@@ -91,27 +111,35 @@ Plan plan(int B, int KV, int G, int Sc, int hd, int elem_bytes) {
 }
 
 template <int W>
-__device__ __forceinline__ void load8(const void* p, uint4 (&r)[W]) {
+__device__ __forceinline__ void load16(const void* p, uint4 (&r)[W]) {
   const uint4* s = static_cast<const uint4*>(p);
 #pragma unroll
   for (int w = 0; w < W; ++w) r[w] = __ldg(s + w);
 }
 
-// 8 channels to fp32: one word of bf16 or two of fp32
-__device__ __forceinline__ void unpack8(const uint4 (&r)[1], float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r[0]);
+// W 16-byte words to fp32 channels: 8 a word of bf16, 4 of fp32
+template <int W>
+__device__ __forceinline__ void unpack(const uint4 (&r)[W], float (&f)[8 * W]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+  for (int w = 0; w < W; ++w) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r[w]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[8 * w + 2 * i] = t.x;
+      f[8 * w + 2 * i + 1] = t.y;
+    }
   }
 }
-__device__ __forceinline__ void unpack8(const uint4 (&r)[2], float (&f)[8]) {
-  f[0] = __uint_as_float(r[0].x); f[1] = __uint_as_float(r[0].y);
-  f[2] = __uint_as_float(r[0].z); f[3] = __uint_as_float(r[0].w);
-  f[4] = __uint_as_float(r[1].x); f[5] = __uint_as_float(r[1].y);
-  f[6] = __uint_as_float(r[1].z); f[7] = __uint_as_float(r[1].w);
+template <int W>
+__device__ __forceinline__ void unpack(const uint4 (&r)[W], float (&f)[4 * W]) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    f[4 * w] = __uint_as_float(r[w].x);
+    f[4 * w + 1] = __uint_as_float(r[w].y);
+    f[4 * w + 2] = __uint_as_float(r[w].z);
+    f[4 * w + 3] = __uint_as_float(r[w].w);
+  }
 }
 
 // True in the block that brings the counter to `total`, after every other
@@ -135,12 +163,14 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            const int* __restrict__ lengths, float* __restrict__ part_ml,
            float* __restrict__ part_acc, int* __restrict__ counters, T* __restrict__ out,
            int Sc, int H, int KV, int chunk, float qscale) {
-  constexpr int TPR = HD / 8;              // threads per key row
+  constexpr int TPR = row_lanes(HD);       // threads per key row
+  constexpr int CPL = lane_chans(HD);      // channels a thread
+  constexpr int NA = HD / CPL;             // threads of a row that load (TPR, or 7 of 8)
   constexpr int RG = kThreads / TPR;       // key rows a block reads at once
-  constexpr int U = rows_in_flight(sizeof(T));
-  constexpr int W = 8 * (int)sizeof(T) / 16;  // 16-byte loads per 8 channels
+  constexpr int U = rows_in_flight(HD, sizeof(T));
+  constexpr int W = CPL * (int)sizeof(T) / 16;  // 16-byte loads per CPL channels
   __shared__ float s_m[RG][GT], s_l[RG][GT];
-  __shared__ float s_acc[RG][GT][HD];   // RG * HD = 1024 >= 2 * kMaxSplits
+  __shared__ float s_acc[RG][GT][HD];   // RG * HD >= 1024 >= 2 * kMaxSplits
   __shared__ float s_L[GT];
 
   const int split = blockIdx.x, tile = blockIdx.y, bk = blockIdx.z;
@@ -150,6 +180,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int len = max(0, min(lengths[b], Sc));
   const int n_valid = (len + chunk - 1) / chunk;   // splits holding a valid key
   const int tid = threadIdx.x, rg = tid / TPR, cs = tid % TPR;
+  const bool loads = cs < NA;
   T* orow = out + ((size_t)b * H + kv * G + g0) * HD;   // this tile's heads
 
   if (split >= n_valid) {
@@ -158,29 +189,29 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     return;
   }
 
-  float qr[GT][8];
+  float qr[GT][CPL];
 #pragma unroll
   for (int gi = 0; gi < GT; ++gi) {
     uint4 raw[W];
 #pragma unroll
     for (int w = 0; w < W; ++w) raw[w] = make_uint4(0, 0, 0, 0);
-    if (gi < ng) load8<W>(q + ((size_t)b * H + kv * G + g0 + gi) * HD + cs * 8, raw);
-    unpack8(raw, qr[gi]);
+    if (gi < ng && loads) load16<W>(q + ((size_t)b * H + kv * G + g0 + gi) * HD + cs * CPL, raw);
+    unpack(raw, qr[gi]);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) qr[gi][c] *= qscale;
+    for (int c = 0; c < CPL; ++c) qr[gi][c] *= qscale;
   }
-  float m[GT], l[GT], acc[GT][8];
+  float m[GT], l[GT], acc[GT][CPL];
 #pragma unroll
   for (int gi = 0; gi < GT; ++gi) {
     m[gi] = kNegInf;
     l[gi] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[gi][c] = 0.f;
+    for (int c = 0; c < CPL; ++c) acc[gi][c] = 0.f;
   }
 
   const int k0 = split * chunk, k1 = min(k0 + chunk, len);
   const size_t row_stride = (size_t)KV * HD;
-  const size_t base = ((size_t)b * Sc * KV + kv) * HD + cs * 8;
+  const size_t base = ((size_t)b * Sc * KV + kv) * HD + cs * CPL;
   // the trip count is the same for every lane, so the shuffles below see a
   // full warp; rows past k1 are loaded as zeros and weighted by p = 0
   for (int j0 = k0; j0 < k1; j0 += RG * U) {
@@ -190,9 +221,9 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int u = 0; u < U; ++u) {
       const int j = j0 + u * RG + rg;
       ok[u] = j < k1;
-      if (ok[u]) {
-        load8<W>(k + base + j * row_stride, kr[u]);
-        load8<W>(v + base + j * row_stride, vr[u]);
+      if (ok[u] && loads) {
+        load16<W>(k + base + j * row_stride, kr[u]);
+        load16<W>(v + base + j * row_stride, vr[u]);
       } else {
 #pragma unroll
         for (int w = 0; w < W; ++w) kr[u][w] = vr[u][w] = make_uint4(0, 0, 0, 0);
@@ -201,13 +232,13 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     float s[U][GT];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[8];
-      unpack8(kr[u], kf);
+      float kf[CPL];
+      unpack(kr[u], kf);
 #pragma unroll
       for (int gi = 0; gi < GT; ++gi) {
         float d = 0.f;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) d = fmaf(qr[gi][c], kf[c], d);
+        for (int c = 0; c < CPL; ++c) d = fmaf(qr[gi][c], kf[c], d);
         s[u][gi] = d;
       }
     }
@@ -228,7 +259,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       m[gi] = mx;
       l[gi] *= alpha;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[gi][c] *= alpha;
+      for (int c = 0; c < CPL; ++c) acc[gi][c] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         s[u][gi] = ok[u] ? exp2f(s[u][gi] - mx) : 0.f;
@@ -237,12 +268,12 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float vf[8];
-      unpack8(vr[u], vf);
+      float vf[CPL];
+      unpack(vr[u], vf);
 #pragma unroll
       for (int gi = 0; gi < GT; ++gi)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[gi][c] = fmaf(s[u][gi], vf[c], acc[gi][c]);
+        for (int c = 0; c < CPL; ++c) acc[gi][c] = fmaf(s[u][gi], vf[c], acc[gi][c]);
     }
   }
 
@@ -253,8 +284,10 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       s_m[rg][gi] = m[gi];
       s_l[rg][gi] = l[gi];
     }
+    if (loads) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) s_acc[rg][gi][cs * 8 + c] = acc[gi][c];
+      for (int c = 0; c < CPL; ++c) s_acc[rg][gi][cs * CPL + c] = acc[gi][c];
+    }
   }
   __syncthreads();
   if (tid < GT) {   // per head: the block's max, each row group's scale, the sum
@@ -332,17 +365,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   return cudaGetLastError();
 }
 
+// The head tiles above max_head_tile(HD) are not instantiated (at hd = 168
+// their s_acc would pass the 48 KB of static shared memory).
 template <typename T, int HD>
 cudaError_t by_group(int gt, const void* q, const void* k, const void* v, const int* lengths,
                      float* pml, float* pacc, int* cnt, void* out, cudaStream_t s, int B,
                      int Sc, int H, int KV, int chunk, int n_splits, float qscale) {
+#define DECODE_ARGS q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale
+  constexpr int MT = max_head_tile(HD);
   switch (gt) {
-    case 1: return launch<T, HD, 1>(q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
-    case 2: return launch<T, HD, 2>(q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
-    case 4: return launch<T, HD, 4>(q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
-    case 8: return launch<T, HD, 8>(q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
-    default: return cudaErrorInvalidValue;
+    case 1: return launch<T, HD, 1>(DECODE_ARGS);
+    case 2: return launch<T, HD, 2>(DECODE_ARGS);
+    case 4: if constexpr (MT >= 4) return launch<T, HD, 4>(DECODE_ARGS); else break;
+    case 8: if constexpr (MT >= 8) return launch<T, HD, 8>(DECODE_ARGS); else break;
   }
+#undef DECODE_ARGS
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -354,13 +392,14 @@ cudaError_t by_head_dim(int hd, int gt, const void* q, const void* k, const void
     case 32: return by_group<T, 32>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
     case 64: return by_group<T, 64>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
     case 128: return by_group<T, 128>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
+    case 168: return by_group<T, 168>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
     default: return cudaErrorInvalidValue;
   }
 }
 
 bool valid(int B, int Sc, int H, int KV, int hd, int dtype) {
   return B >= 1 && Sc >= 1 && KV >= 1 && H >= KV && H % KV == 0 &&
-         (hd == 32 || hd == 64 || hd == 128) && (dtype == kF32 || dtype == kBF16);
+         (hd == 32 || hd == 64 || hd == 128 || hd == 168) && (dtype == kF32 || dtype == kBF16);
 }
 
 }  // namespace

@@ -39,9 +39,19 @@
 //    the mask.
 //  * O is divided by l and rounded to bf16 once and written from registers;
 //    query rows >= Sq are not written.
+//  * hd = 168 (Gemma3) is a multiple of neither wgmma's K step of 16 nor the
+//    64-column panel of the 128-byte swizzle. Its tiles are 192 columns wide
+//    (three panels) while the tensor maps keep the true width of 168, so TMA
+//    fills columns 168-191 of Q, K and V with zeros: Q K^T runs 11 K steps
+//    (176 columns, the last 8 zero) and P V runs at N = 192, of which only
+//    168 columns are stored. The tile costs 192/168 = 14% more P V work and
+//    shared memory than the true width (144 KB: Q 48 KB, K/V 2 x 2 x 24 KB),
+//    and 96 fp32 accumulators a thread for O.
 //
 // fp32 (tiny-lm only, off the main path): flash_fwd_simt, both products on
 // the CUDA cores in fp32 from shared memory, 64 query rows by 32-key tiles.
+// A thread owns 16-column strides of O: ceil(hd / 16) of them, the V tile
+// padded with zero columns to a whole number (176 at hd = 168).
 // This is a branch on dtype, not a fall-back: TF32 would miss the fp32
 // tolerance of 2e-5 and wgmma has no fp32 inputs. No failure of the bf16
 // kernel ever routes here.
@@ -73,12 +83,14 @@ constexpr int kStages = 2;     // K/V tiles in the shared-memory ring
 
 template <int HD>
 struct Tile {
-  static constexpr int BN = HD == 128 ? 64 : 128;  // keys per KV tile
+  static constexpr int TW = HD == 168 ? 192 : HD;  // columns of a tile: whole panels
+  static constexpr int KD = (HD + 15) / 16 * 16;   // columns Q K^T runs over
+  static constexpr int BN = TW >= 128 ? 64 : 128;  // keys per KV tile
   static constexpr int SWZ = HD >= 64 ? 128 : 64;  // bytes per shared-memory row
   static constexpr int PW = SWZ / 2;               // columns per panel
-  static constexpr int NP = HD / PW;               // column panels of a tile
-  static constexpr int Q_BYTES = kBM * HD * 2;
-  static constexpr int KV_BYTES = BN * HD * 2;
+  static constexpr int NP = TW / PW;               // column panels of a tile
+  static constexpr int Q_BYTES = kBM * TW * 2;
+  static constexpr int KV_BYTES = BN * TW * 2;
   static constexpr int BAR_OFF = Q_BYTES + 2 * kStages * KV_BYTES;
   static constexpr int SMEM = BAR_OFF + (3 * kStages + 1) * 8 + 1024;  // + slack to align to 1 KB
 };
@@ -112,7 +124,8 @@ __device__ __forceinline__ int empty_row_pad(int Skv) {
 // The empty-row value of a warp that holds such a row: every key's V row of
 // (b, KV head g) summed in fp32, 16 bytes a lane, the lanes that share a
 // column chunk then combined; out[jn][0..1] get columns 8 jn + cq, + 1 (the
-// thread's accumulator columns). Called by all 32 lanes.
+// thread's accumulator columns) for jn < HD / 8. Called by all 32 lanes; at
+// hd = 168 (21 chunks) lanes 21-31 read nothing.
 template <int HD>
 __device__ __forceinline__ void empty_row_sums(const __nv_bfloat16* __restrict__ vg, int b,
                                                int g, int Skv, int KV, int lane, int cq,
@@ -124,8 +137,9 @@ __device__ __forceinline__ void empty_row_sums(const __nv_bfloat16* __restrict__
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc[e] = 0.f;
   const __nv_bfloat16* vb = vg + ((size_t)b * Skv * KV + g) * HD + 8 * cc;
+  const int kp0 = lane < NC * KL ? lane / NC : Skv;
 #pragma unroll 4
-  for (int kp = lane / NC; kp < Skv; kp += KL) {
+  for (int kp = kp0; kp < Skv; kp += KL) {
     const uint4 raw = *reinterpret_cast<const uint4*>(vb + (size_t)kp * KV * HD);
     const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -136,7 +150,7 @@ __device__ __forceinline__ void empty_row_sums(const __nv_bfloat16* __restrict__
     }
   }
 #pragma unroll
-  for (int off = NC; off < 32; off *= 2)
+  for (int off = NC; off < NC * KL; off *= 2)
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
 #pragma unroll
@@ -222,9 +236,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     const int cq = 2 * (lane % 4);        // and columns cq, cq + 1 of each 8
     const uint8_t* Qw = Qs + 64 * wg * SWZ;
 
-    float oacc[HD / 2];
+    float oacc[T::TW / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < T::TW / 2; ++i) oacc[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
     if (n_tiles > 0) mbar_wait(q_full, 0);
@@ -242,7 +256,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         fence_regs(sacc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
+        for (int kk = 0; kk < T::KD / 16; ++kk) {
           const int p = kk * 16 / T::PW, off = (kk * 16 % T::PW) * 2;
           wgmma_ss<BN>(sacc, gmma_desc<SWZ>(Qw + p * kBM * SWZ + off, 16),
                        gmma_desc<SWZ>(Kt + p * BN * SWZ + off, 16), kk > 0);
@@ -289,7 +303,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
           else l0 += pv;
         }
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) oacc[i] *= (i & 2) ? a1 : a0;
+        for (int i = 0; i < T::TW / 2; ++i) oacc[i] *= (i & 2) ? a1 : a0;
         uint32_t pa[BN / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
@@ -302,7 +316,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs<HD>(oacc, pa[kk], gmma_desc<SWZ>(Vt + kk * 16 * SWZ, BN * SWZ), 1);
+          wgmma_rs<T::TW>(oacc, pa[kk], gmma_desc<SWZ>(Vt + kk * 16 * SWZ, BN * SWZ), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(oacc);
@@ -318,7 +332,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     // rows with no valid key take the empty-row value (see the header)
     const bool e0 = l0 == 0.f && qlo + r0 < Sq, e1 = l1 == 0.f && qlo + r0 + 8 < Sq;
     if (__any_sync(0xffffffffu, e0 || e1)) {
-      float ev[HD / 8][2];
+      float ev[T::TW / 8][2];
       empty_row_sums<HD>(vg, b, g, Skv, KV, lane, cq, ev);
 #pragma unroll
       for (int jn = 0; jn < HD / 8; ++jn) {
@@ -375,9 +389,14 @@ constexpr int kBKV = 32;
 constexpr int kThreads = 256;
 
 template <int HD>
+__host__ __device__ constexpr int v_cols() {  // V tile columns: HD rounded up to 16
+  return (HD + 15) / 16 * 16;
+}
+
+template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * (HD + 1) + kBKV * (HD + 1) + kBKV * HD + kBQ * (kBKV + 1) +
-                          3 * kBQ);
+  return sizeof(float) * (kBQ * (HD + 1) + kBKV * (HD + 1) + kBKV * v_cols<HD>() +
+                          kBQ * (kBKV + 1) + 3 * kBQ);
 }
 
 template <typename T, int HD>
@@ -388,13 +407,14 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   extern __shared__ float smem[];
   float* Qs = smem;                   // kBQ x (HD+1)
   float* Ks = Qs + kBQ * (HD + 1);    // kBKV x (HD+1)
-  float* Vs = Ks + kBKV * (HD + 1);   // kBKV x HD
-  float* Ps = Vs + kBKV * HD;         // kBQ x (kBKV+1)
+  constexpr int VW = v_cols<HD>();
+  float* Vs = Ks + kBKV * (HD + 1);   // kBKV x VW, columns >= HD zero
+  float* Ps = Vs + kBKV * VW;         // kBQ x (kBKV+1)
   float* m_s = Ps + kBQ * (kBKV + 1);
   float* l_s = m_s + kBQ;
   float* a_s = l_s + kBQ;
 
-  constexpr int NJ = HD / 16;
+  constexpr int NJ = VW / 16;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -426,17 +446,17 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   for (int kv0 = kv_start; kv0 < kv_end; kv0 += kBKV) {
     __syncthreads();  // Q staged / previous tile fully consumed
-    for (int i = tid; i < kBKV * HD; i += kThreads) {
-      const int r = i / HD, c = i % HD;
+    for (int i = tid; i < kBKV * VW; i += kThreads) {
+      const int r = i / VW, c = i % VW;
       const int kp = kv0 + r;
       float kx = 0.f, vx = 0.f;
-      if (kp < Skv) {
+      if (kp < Skv && c < HD) {
         const size_t off = ((size_t)(b * Skv + kp) * KV + g) * HD + c;
         kx = to_f32(k[off]);
         vx = to_f32(v[off]);
       }
-      Ks[r * (HD + 1) + c] = kx;
-      Vs[r * HD + c] = vx;
+      if (c < HD) Ks[r * (HD + 1) + c] = kx;
+      Vs[r * VW + c] = vx;
     }
     __syncthreads();
 
@@ -501,7 +521,7 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (kBKV + 1) + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[kk * HD + tx + 16 * j];
+        const float vv = Vs[kk * VW + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
@@ -516,10 +536,11 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int i = 0; i < 4; ++i)
     empty = empty || (q0 + ty + 16 * i < Sq && m_s[ty + 16 * i] == kNegInf);
   if (__syncthreads_or(empty)) {
-    constexpr int NPART = kThreads / HD;
+    constexpr int NPART = kThreads / HD;  // threads a column (1 at hd = 168)
     float sum = 0.f;
-    for (int kp = tid / HD; kp < Skv; kp += NPART)
-      sum += to_f32(v[((size_t)(b * Skv + kp) * KV + g) * HD + tid % HD]);
+    if (tid < NPART * HD)
+      for (int kp = tid / HD; kp < Skv; kp += NPART)
+        sum += to_f32(v[((size_t)(b * Skv + kp) * KV + g) * HD + tid % HD]);
     Ks[tid] = sum;
     __syncthreads();
     if (tid < HD) {
@@ -540,8 +561,9 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const float l = none ? pad : fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      o[((size_t)(b * Sq + qp) * H + h) * HD + tx + 16 * j] =
-          from_f32<T>((none ? Vs[tx + 16 * j] : acc[i][j]) / l);
+      if (tx + 16 * j < HD)
+        o[((size_t)(b * Sq + qp) * H + h) * HD + tx + 16 * j] =
+            from_f32<T>((none ? Vs[tx + 16 * j] : acc[i][j]) / l);
   }
 }
 
@@ -573,12 +595,14 @@ cudaError_t by_head_dim(int dtype, int hd, const void* q, const void* k, const v
       case 32: return launch_sm90<32>(FLASH_ARGS);
       case 64: return launch_sm90<64>(FLASH_ARGS);
       case 128: return launch_sm90<128>(FLASH_ARGS);
+      case 168: return launch_sm90<168>(FLASH_ARGS);
     }
   } else if (dtype == kF32) {
     switch (hd) {
       case 32: return simt::launch<32>(FLASH_ARGS);
       case 64: return simt::launch<64>(FLASH_ARGS);
       case 128: return simt::launch<128>(FLASH_ARGS);
+      case 168: return simt::launch<168>(FLASH_ARGS);
     }
   }
 #undef FLASH_ARGS

@@ -8,7 +8,8 @@ grid axis; here blocks of grid (splits, head tiles, B*KV) each attend one
 chunk of keys with 16-byte loads, and the last block of each (row, KV head,
 head tile) combines the splits in the same launch. Bound by the bytes of the
 valid K/V prefix (13.9 MB at B=8, Sc=576, KV=8, hd=128 in bf16 with
-chip_smoke.py's ragged lengths: ~4.2 us).
+chip_smoke.py's ragged lengths: ~4.2 us). At Gemma3's hd=168 a key row is
+an 8-lane group, 7 lanes of 24 channels.
 
 The library plans the split from the shapes and the SM count alone (the
 lengths stay on the device: reading them would cost a sync per layer per
@@ -30,6 +31,7 @@ import torch
 
 from repro_torch.kernels import _build
 
+HEAD_DIMS = (32, 64, 128, 168)
 Plan = Tuple[int, int, int]   # (query heads a block, splits, keys a split)
 _PLANS: Dict[tuple, Tuple[Plan, Tuple[int, int]]] = {}
 
@@ -87,8 +89,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q must be (B, H, hd) and k/v (B, Sc, KV, hd)")
     B, H, hd = q.shape
     _, Sc, KV, _ = k.shape
-    if hd not in (32, 64, 128) or H % KV:
-        raise ValueError(f"kernel takes hd in (32, 64, 128) and H % KV == 0, "
+    if hd not in HEAD_DIMS or H % KV:
+        raise ValueError(f"kernel takes hd in {HEAD_DIMS} and H % KV == 0, "
                          f"got hd={hd}, H={H}, KV={KV}")
     dev = q.device
     code = _build.require(q, "q", ("float32", "bfloat16"))

@@ -13,8 +13,8 @@
                first half of the prompts, and predict the second half's median
                through the fused head. ``--model`` picks any ported config
                (default ``tiny-lm``, as the reference; Llama-3-8B,
-               Qwen2.5-7B, Granite-20B, MiniCPM-2B, Yi-34B, Zamba2-1.2B and
-               Mamba2-130M at full size in bf16) with seeded random
+               Qwen2.5-7B, Granite-20B, MiniCPM-2B, Yi-34B, Gemma3-27B,
+               Zamba2-1.2B and Mamba2-130M at full size in bf16) with seeded random
                weights, or the weights of a ``launch/train.py`` checkpoint
                (``--ckpt``; its whole train state, AdamW moments included,
                is checked against the model's before the params are taken).
@@ -24,6 +24,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model tiny-lm
     PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model qwen2.5-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model gemma3-27b
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ reference's ``ssm_apply_train`` (ROADMAP.md, queue 1 item 11).
 
     PYTHONPATH=src python -m repro_torch.launch.train_lm --steps 200 --ckpt-dir build/ck
     PYTHONPATH=src python -m repro_torch.launch.train_lm --device cpu --arch qwen2.5-7b
+    PYTHONPATH=src python -m repro_torch.launch.train_lm --device cpu --arch gemma3-27b
 """
 
 from __future__ import annotations

@@ -19,18 +19,22 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamSpec
+from repro_torch.models.layers import ParamSpec, rms_norm
 from repro_torch.models.rope import apply_rope
 
 
 def attn_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     hd = cfg.head_dim
-    return {
+    s = {
         "wq": ParamSpec((cfg.d_model, cfg.n_heads, hd)),
         "wk": ParamSpec((cfg.d_model, cfg.n_kv_heads, hd)),
         "wv": ParamSpec((cfg.d_model, cfg.n_kv_heads, hd)),
         "wo": ParamSpec((cfg.n_heads, hd, cfg.d_model)),
     }
+    if cfg.qk_norm:                 # Gemma3: RMS norms over head_dim on q and k
+        s["q_norm"] = ParamSpec((hd,), init="zeros")
+        s["k_norm"] = ParamSpec((hd,), init="zeros")
+    return s
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -42,8 +46,13 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def qkv_project(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                 angles: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> q (B, S, H, hd), k and v (B, S, KV, hd)."""
+    """x (B, S, d) -> q (B, S, H, hd), k and v (B, S, KV, hd). With
+    ``qk_norm`` q and k are RMS-normalised over hd before RoPE
+    (``repro/models/attention.py:49-51``)."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
@@ -105,15 +114,22 @@ def _pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
     return F.pad(x, [0, 0] * (x.ndim - 2) + [0, pad])
 
 
-def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: int = 0) -> torch.Tensor:
     """Causal online-softmax attention over blocks of ``BLOCK`` keys, q (B, S,
-    H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd): the counterpart of
+    H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd); ``window`` > 0 keeps the
+    keys with q - k < window. The counterpart of
     ``repro/models/attention.py:72-171`` at the arguments the training
-    forward gives it (causal, no key mask, the default blocks), step for step
-    (fp32 scores and accumulators, masked scores at -1e30, the output rounded
-    once to ``v``'s dtype). Key blocks past the diagonal are skipped: there
-    the reference's update multiplies by exp(0) and adds exp(-1e30 - m) = 0.
-    Plain PyTorch, so autograd differentiates it."""
+    forward gives it (causal, a layer's window, no key mask, the default
+    blocks), step for step (fp32 scores and accumulators, masked scores at
+    -1e30, the output rounded once to ``v``'s dtype). Key blocks that every
+    row of a query block masks are skipped, on both sides of the band. Past
+    the diagonal the reference's update multiplies by exp(0) and adds
+    exp(-1e30 - m) = 0. Before the window a row has seen no valid key yet
+    (m = -1e30); its first valid key, which every row has (its own), comes
+    with alpha = exp(-1e30 - m) = 0 and wipes what those blocks added, so
+    starting after them gives the same numbers. Plain PyTorch, so autograd
+    differentiates it."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -130,10 +146,14 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
         l = torch.zeros((B, KV, G, blk), dtype=f32, device=q.device)
         acc = torch.zeros((B, KV, G, blk, hd), dtype=f32, device=q.device)
         for j in range(i + 1):
+            if window and i * blk - ((j + 1) * blk - 1) >= window:
+                continue              # before the window of every row of the block
             cols = slice(j * blk, (j + 1) * blk)
             vb = v[:, cols]
             s = torch.einsum("bqkgh,bskh->bkgqs", qc, k[:, cols].to(f32)) * scale
             mask = pos[cols][None, :] <= pos[rows][:, None]
+            if window:
+                mask = mask & (pos[rows][:, None] - pos[cols][None, :] < window)
             s = torch.where(mask, s, torch.full((), NEG_INF, dtype=f32, device=q.device))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])

@@ -58,14 +58,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def mlp_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
+    """A gated MLP's weights, the same for either gate."""
     return {"w_gate": ParamSpec((d_model, d_ff)),
             "w_up": ParamSpec((d_model, d_ff)),
             "w_down": ParamSpec((d_ff, d_model))}
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+# the gate of a gated MLP: SiLU, or GELU in its tanh form, which is
+# jax.nn.gelu's default (approximate=True) and so the reference's gelu_gated
+GATES = {"silu": F.silu, "gelu_gated": lambda x: F.gelu(x, approximate="tanh")}
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated MLP: act(x W_gate) * (x W_up), then W_down."""
+    return (GATES[act](x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
 def embed_spec(vocab: int, d_model: int) -> ParamSpec:

@@ -6,6 +6,7 @@ a ``(kinds, n_blocks)`` pair (``repro/models/transformer.py:58-82``):
 
 * uniform dense:   [ (('full',), L) ]
 * dense, windowed: [ (('local',), L) ]
+* gemma3 5:1:      [ (('local',)*5 + ('full',), L//6), (('local',)*(L%6), 1) ]
 * mamba2:          [ (('ssm',), L) ]
 * zamba2 hybrid:   [ (('shared_attn',) + ('ssm',)*k, L//k), (('ssm',)*(L%k), 1) ]
 
@@ -36,13 +37,17 @@ attends to ``min(lengths, window)`` slots of a ring
 new state. The window also goes to the prefill kernel. ``local`` layers
 take their own rope base (``rope_theta_local``).
 
-MoE, local/global mixes (Gemma3), ``qk_norm`` and M-RoPE raise
-``NotImplementedError`` until their slices (ROADMAP.md); the int8 KV cache
-has no switch in the port yet.
+Gemma3's pieces: a local/global mix (``local_global_ratio``: blocks of that
+many ``local`` layers and one ``full`` one, the rest ``local``),
+``qk_norm`` (``attention.qkv_project``) and the tanh-GELU gated MLP
+(``act="gelu_gated"``, ``layers.mlp_apply``). MoE, M-RoPE and the plain
+two-matrix MLP raise ``NotImplementedError`` until their slices
+(ROADMAP.md); the int8 KV cache has no switch in the port yet.
 
 The training forward (:func:`train_forward`, :func:`lm_loss`) runs the
 layers with :func:`attention.blocked_attention` in plain PyTorch, causal
-with no key mask, as the reference's train mode does, and can recompute
+with a ``local`` layer's window and no key mask, each layer with its own
+rope base, as the reference's train mode does, and can recompute
 each layer in the backward pass (``remat``, the reference's
 ``jax.checkpoint``, ``transformer.py:307``). SSM layers do not train yet:
 the reference's ``ssm_apply_train`` is queued (ROADMAP.md, queue 1 item 11).
@@ -60,9 +65,9 @@ import torch.utils.checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (ParamSpec, embed_spec, mlp_apply,
+from repro_torch.models.layers import (GATES, ParamSpec, embed_spec, mlp_apply,
                                        mlp_spec, rms_norm, unembed)
-from repro_torch.models.rope import angles_by_base, positions_from_tokens, rope_angles
+from repro_torch.models.rope import angles_by_base, positions_from_tokens
 
 Entry = Union[Tuple[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 Cache = List[Entry]
@@ -71,10 +76,8 @@ Cache = List[Entry]
 def check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "family": cfg.family not in ("dense", "ssm", "hybrid"),
-        "local_global_ratio (the Gemma3 slice)": bool(cfg.local_global_ratio),
-        "qk_norm": cfg.qk_norm,
         "use_mrope": cfg.use_mrope,
-        "act": cfg.act != "silu",
+        "act (the plain two-matrix MLP: Whisper's encdec slice)": cfg.act not in GATES,
     }
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
@@ -97,6 +100,14 @@ class Segment:
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
     L = cfg.n_layers
     if cfg.family == "dense":
+        if cfg.local_global_ratio > 0:
+            blk = ("local",) * cfg.local_global_ratio + ("full",)
+            segs = []
+            if L // len(blk):
+                segs.append(Segment(blk, L // len(blk)))
+            if L % len(blk):
+                segs.append(Segment(("local",) * (L % len(blk)), 1))
+            return segs
         return [Segment(("local" if cfg.attn_window else "full",), L)]
     if cfg.family == "ssm":
         return [Segment(("ssm",), L)]
@@ -140,7 +151,7 @@ def _norm(cfg: ModelConfig) -> ParamSpec:
 
 
 def shared_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    """Attention + SiLU MLP: Zamba2's shared block, and a dense layer."""
+    """Attention + gated MLP: Zamba2's shared block, and a dense layer."""
     return {"ln1": _norm(cfg), "attn": attn.attn_spec(cfg), "ln2": _norm(cfg),
             "mlp": mlp_spec(cfg.d_model, cfg.d_ff)}
 
@@ -172,7 +183,7 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _ffn(lp, x, cfg: ModelConfig):
-    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.act)
 
 
 def _has_attention(kinds: List[str]) -> bool:
@@ -316,25 +327,22 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _train_layer(p, x, cfg: ModelConfig, angles):
+def _train_layer(p, x, cfg: ModelConfig, angles, window: int):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(p["attn"], h, cfg, angles)
-    o = attn.blocked_attention(q, k, v)
+    o = attn.blocked_attention(q, k, v, window=window)
     return _ffn(p, x + attn.out_project(p["attn"], o), cfg)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config whose training forward is not ported yet."""
+    """Raise for a config whose training forward is not ported yet: SSM
+    layers (and so the hybrid's shared block, which only Zamba2 has)."""
     kinds = layer_kinds(cfg)
-    if "ssm" in kinds:
+    if any(kind not in ("full", "local") for kind in kinds):
         raise NotImplementedError(
             f"{cfg.name}: training a {cfg.family} model needs the reference's "
             f"ssm_apply_train (repro/models/ssm.py:140), not ported yet "
             f"(ROADMAP.md, queue 1 item 11)")
-    if any(kind != "full" for kind in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: training windowed layers needs blocked_attention's window, "
-            f"not ported yet (ROADMAP.md, queue 1 item 11)")
 
 
 def train_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
@@ -344,15 +352,15 @@ def train_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor
     layer keeps only its input and is recomputed in the backward pass."""
     check_trainable(cfg)
     B, S = tokens.shape
+    kinds = layer_kinds(cfg)
     x = params["embed"][tokens]
-    angles = rope_angles(positions_from_tokens(B, S, device=tokens.device),
-                         cfg.head_dim, cfg.rope_theta)
-    for lp in params["layers"]:
+    angles = _angles(cfg, kinds, positions_from_tokens(B, S, device=tokens.device))
+    for kind, lp in zip(kinds, params["layers"]):
+        args = (lp, x, cfg, angles(kind), _window(cfg, kind))
         if remat:
-            x = torch.utils.checkpoint.checkpoint(_train_layer, lp, x, cfg, angles,
-                                                  use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(_train_layer, *args, use_reentrant=False)
         else:
-            x = _train_layer(lp, x, cfg, angles)
+            x = _train_layer(*args)
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(hidden, params["embed"], params.get("head")), hidden
 

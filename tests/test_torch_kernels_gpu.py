@@ -44,7 +44,7 @@ def _qkv(seed, qshape, kvshape, dtype, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 168])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17), (False, 0)])
 def test_flash_attention_kernel_vs_plain(dtype, hd, causal, window):
     dev = cuda_device()
@@ -95,6 +95,19 @@ FLASH_BF16_CASES = {
     "window-empty-rows-hd128": (2, 700, 8, 1, 128, True, 100, [700, 3]),
     "window-empty-rows-hd32": (2, 333, 4, 4, 32, True, 40, [2, 333]),
     "zamba2-window-short-row": (2, 1100, 32, 32, 64, True, 512, [1100, 20]),
+    # Gemma3-27B's heads (32 on 16 KV heads, hd=168: tiles of 192 columns,
+    # the last 24 read as zeros): the serve shape, its 1,024-key window with
+    # a short row whose padded queries past len + window see no key, a
+    # ragged query tile, a window inside one key tile, and G=1 and G=8
+    "gemma3-serve": (2, 512, 32, 16, 168, True, 0, [512, 1]),
+    "gemma3-serve-len37-65": (2, 512, 32, 16, 168, True, 0, [37, 65]),
+    "gemma3-window1024": (2, 1100, 32, 16, 168, True, 1024, [1100, 20]),
+    "gemma3-window1024-full": (1, 1100, 32, 16, 168, True, 1024, None),
+    "gemma3-S77": (2, 77, 4, 2, 168, True, 0, None),
+    "gemma3-window17-empty-rows": (3, 300, 4, 2, 168, True, 17, [300, 5, 100]),
+    "gemma3-non-causal": (2, 300, 4, 2, 168, False, 0, [300, 65]),
+    "gemma3-G1": (2, 256, 4, 4, 168, True, 0, [256, 129]),
+    "gemma3-G8": (2, 256, 8, 1, 168, True, 0, [256, 129]),
 }
 
 
@@ -110,6 +123,25 @@ def test_flash_attention_bf16_kernel_vs_plain(case):
     got = ops.flash_attention(q, k, v, causal=causal, window=window, kv_lengths=lens)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_lengths=lens)
     close(got, want, BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("window,lens", [(0, [300, 1]), (17, [300, 5]), (1024, [300, 200])],
+                         ids=["causal", "window17", "window1024"])
+def test_flash_attention_hd168(dtype, window, lens):
+    """Gemma3's head width in both kernels (wgmma in bf16, SIMT in fp32):
+    ragged lengths, rows with no valid key (window 17 on a 5-key row), a
+    window longer than the sequence; a second call gives the same bits."""
+    dev = cuda_device()
+    B, S, H, KV, hd = 2, 300, 8, 4, 168
+    q, k, v = _qkv(16, (B, S, H, hd), (B, S, KV, hd), dtype, dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = ops.flash_attention(q, k, v, causal=True, window=window, kv_lengths=lens)
+    close(got, ref.flash_attention_ref(q, k, v, causal=True, window=window, kv_lengths=lens),
+          dtype)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True, window=window,
+                                                kv_lengths=lens))
 
 
 def _check_decode(q, k, v, lens, dtype):
@@ -133,7 +165,7 @@ def test_decode_attention_kernel_vs_plain(dtype, B, Sc, H, KV, hd):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 168])
 @pytest.mark.parametrize("G", [1, 4, 8, 16])
 def test_decode_attention_group_sizes(dtype, hd, G):
     """Query heads per KV head 1 (one head a block), 4 and 8 (one head tile)
@@ -163,6 +195,11 @@ DECODE_CASES = {
     "minicpm-serve-H36": (8, 576, 36, 36, 64, SERVE_LENS),
     # Zamba2's shared block on its 8,192-slot rings: lengths min(len, W)
     "zamba2-ring": (4, 8192, 32, 32, 64, [8192, 8192, 8192, 577]),
+    # Gemma3-27B (G=2, hd=168): the serve shape, its 1,024-slot rings, a
+    # cache below one pass of keys and a row of one key
+    "gemma3-serve": (8, 576, 32, 16, 168, SERVE_LENS),
+    "gemma3-ring": (4, 1024, 32, 16, 168, [1024, 1024, 1024, 577]),
+    "gemma3-Sc20": (3, 20, 4, 2, 168, [20, 1, 13]),
 }
 
 
@@ -216,6 +253,8 @@ PLAN_CASES = [
     (3, 301, 8, 2, 128, F32), (3, 301, 24, 2, 128, F32), (1, 40, 4, 4, 32, F32),
     (2, 100, 6, 2, 64, BF16),
     (64, 1, 32, 8, 128, BF16), (1, 1_000_000, 1, 1, 32, BF16),
+    (8, 576, 32, 16, 168, BF16), (4, 1024, 32, 16, 168, BF16),   # Gemma3's (hd=168)
+    (3, 301, 32, 2, 168, F32), (1, 8192, 8, 1, 168, BF16),
 ]
 
 
@@ -223,17 +262,20 @@ PLAN_CASES = [
 @pytest.mark.parametrize("B,Sc,H,KV,hd,dtype", PLAN_CASES)
 def test_decode_attention_plan_covers_the_cache(B, Sc, H, KV, hd, dtype):
     """The library's split, from the shapes and this card's SM count alone:
-    a head tile of G rounded up to a power of two (at most 8), splits that
-    cover every key once (at most 128), and a block on every SM unless the
-    splits are already one pass of keys or the 128-split cap makes them
-    longer."""
+    a head tile of G rounded up to a power of two (at most 8; 2 at hd=168),
+    splits that cover every key once (at most 128), and a block on every SM
+    unless the splits are already one pass of keys or the 128-split cap
+    makes them longer."""
     dev = cuda_device()
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     G = H // KV
     gt, n, chunk = da.plan(dev, B, Sc, H, KV, hd, TDT[dtype])
-    assert gt == min(8, 1 << (G - 1).bit_length())
+    assert gt == min(2 if hd == 168 else 8, 1 << (G - 1).bit_length())
     assert 1 <= n <= 128 and (n - 1) * chunk < Sc <= n * chunk
-    step = 128 // (hd // 8) * (4 if dtype == BF16 else 2)   # key rows a block's pass
+    # key rows a block's pass: hd/8 lanes a row, 4 (bf16) or 2 (fp32) rows a
+    # thread; at hd=168 8 lanes a row and 2 or 1 rows a thread
+    step = (16 * (2 if dtype == BF16 else 1) if hd == 168
+            else 128 // (hd // 8) * (4 if dtype == BF16 else 2))
     assert chunk % step == 0
     assert n * B * KV * -(-G // gt) >= n_sms or chunk == step or -(-Sc // 128) > step
 
@@ -273,6 +315,31 @@ def test_decode_attention_other_plans_round_correctly(plan):
     step = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 7)
     assert bool(((got.double() - exact).abs() <= step + 2e-6).all())
     assert torch.equal(got, da.decode_attention_cuda(q, k, v, lens, with_plan=plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [(2, 1, 576), (2, 2, 320), (2, 3, 192), (2, 5, 128),
+                                  (2, 9, 64), (2, 18, 32), (1, 6, 96)])
+def test_decode_attention_hd168_plans_round_correctly(plan):
+    """Gemma3's decode shape (G=2, hd=168) under other splits than the
+    library's, each within one bf16 step of the exact attention (as above),
+    and a second call bit-identical; a head tile of 4 or 8, which hd=168
+    does not instantiate, is refused."""
+    dev = cuda_device()
+    B, Sc, H, KV, hd = 8, 576, 32, 16, 168
+    q, k, v = _qkv(17, (B, H, hd), (B, Sc, KV, hd), BF16, dev)
+    lens = torch.tensor(SERVE_LENS, dtype=torch.int32, device=dev)
+    got = da.decode_attention_cuda(q, k, v, lens, with_plan=plan)
+    qg = q.double().reshape(B, KV, 2, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.double()) / hd ** 0.5
+    s = s.masked_fill(torch.arange(Sc, device=dev)[None, None, None]
+                      >= lens[:, None, None, None], float("-inf"))
+    exact = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, -1), v.double()).reshape(B, H, hd)
+    step = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((got.double() - exact).abs() <= step + 2e-6).all())
+    assert torch.equal(got, da.decode_attention_cuda(q, k, v, lens, with_plan=plan))
+    with pytest.raises(RuntimeError):
+        da.decode_attention_cuda(q, k, v, lens, with_plan=(4, 6, 96))
 
 
 def _head_args(B, d, hid, K, dev):

@@ -128,8 +128,8 @@ def test_decode_steps_teacher_forced(models):
         jlen, tlen = jlen + 1, tlen + 1
 
 
-@pytest.mark.parametrize("override", [dict(family="moe"), dict(local_global_ratio=1),
-                                      dict(qk_norm=True)])
+@pytest.mark.parametrize("override", [dict(family="moe"), dict(use_mrope=True),
+                                      dict(act="gelu")])
 def test_unported_model_features_raise(override):
     cfg = get_config("tiny-lm").with_overrides(**override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
