@@ -33,7 +33,10 @@ script exits non-zero without its result line:
    at S=1,100 with its 1,024-key window, decode at B=8, Sc=576 (with the
    split sweep) and on 1,024-slot rings, and fp32 flash and decode at a
    small shape, each with a second call bit-identical and SDPA's time and
-   backend beside it;
+   backend beside it; then the MoE configs' heads (``moe_kernel_checks``):
+   Qwen3-MoE's 64 query heads on 4 KV heads (hd=64, G=16) and Kimi-K2's 64
+   on 8 at hd=112, flash at B=8, S=512 and decode at B=8, Sc=576 (Kimi's
+   with the split sweep), and fp32 flash and decode at hd=112;
 4. serve, once per model, each at full width and depth with seeded random
    weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
    (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
@@ -50,7 +53,16 @@ script exits non-zero without its result line:
      full and 2 local, window 1,024, qk_norm, the tanh-GELU gated MLP,
      hd=168, d=5376, a tied 262,144-token vocabulary; 28.29 B parameters in
      its leaves against param_count()'s 21.12 B), r=2: flash, decode and
-     head.
+     head;
+   - the MoE family at full width, its depth cut to what one 80 GB card
+     holds: Qwen3-MoE-235B-A22B (12 of 94 layers, 128 experts top-8,
+     qk_norm; 61.34 GB of bf16 weights) and Kimi-K2 (1 of 61 layers, 384
+     experts top-8 and a shared expert, hd=112; 38.85 GB), r=2: flash,
+     decode and head. Per MoE layer at the prefill the capacity, the
+     (token, j) pairs dropped and the experts with no token are printed,
+     at a decode step the distinct experts routed; the step is timed
+     against two bounds, every expert read (what capacity dispatch reads)
+     and only the experts the step routed to.
    The launch counts are set to 0 before each model's run and read after it;
    each kernel the model's path runs must have risen, and equal
    ``expected_launches`` when no row met EOS. The head kernel is then
@@ -670,29 +682,27 @@ def sdpa_backend(torch, *args, **kwargs) -> str:
 G3_SERVE_LENS = (512, 300, 257, 480, 399, 511, 266, 448)
 
 
-def gemma3_kernel_checks(torch, ref, kernels):
-    """Phase 3, Gemma3-27B's head width (hd=168, 32 query heads on 16 KV
-    heads): both attention kernels against their plain versions (bf16 2e-2,
-    fp32 2e-5, as tests/test_kernels.py), a second call bit-identical, timed
-    eagerly and from a CUDA graph beside the plain version and SDPA on the
-    same inputs (its backend printed), with the bound computed from the true
-    hd of 168 (the kernel's tiles are 192 columns wide: 14% more P.V work
-    than the bound counts). Flash at the serve phases' B=8, S=512 with their
-    ragged lengths; at B=4, S=1,100 with the 1,024-key window (a 20-token
-    row whose padded queries past 1,044 have no valid key); decode at B=8,
-    Sc=576 (G=2, with the split sweep) and on 1,024-slot rings; fp32 flash
-    and decode at a small shape."""
+def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: str):
+    """Both attention kernels at a model's heads against their plain
+    versions (bf16 2e-2, fp32 2e-5, as tests/test_kernels.py), a second call
+    bit-identical, timed eagerly and from a CUDA graph beside the plain
+    version and SDPA on the same inputs (its backend printed), with the
+    bound computed from the true head width (a kernel tile padded past it,
+    as at hd=112 and 168, does more work than the bound counts). The decode
+    rows are also timed with the L2 cache cold, and a row asked to sweeps
+    other splits. ``flash_rows``: (B, S, H, KV, hd, dtype, lengths, window,
+    label); ``decode_rows``: (B, Sc, H, KV, hd, dtype, lengths, label,
+    sweep). Inputs are unit normal, drawn from ``seed``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import plan as decode_plan
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(19)
-    bf, f32 = torch.bfloat16, torch.float32
-    H, KV, hd = 32, 16, 168
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
     rows = []
 
-    def flash_row(B, S, Hq, Kv, dtype, lens, window, label):
+    def flash_row(B, S, Hq, Kv, hd, dtype, lens, window, label):
         tol = 2e-2 if dtype == bf else 2e-5
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         q = torch.randn(B, S, Hq, hd, generator=g, device=dev).to(dtype)
@@ -706,8 +716,8 @@ def gemma3_kernel_checks(torch, ref, kernels):
         want = plain()
         torch.cuda.synchronize()
         check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
-              f"flash_attention hd=168 {label}: max err {max_err(torch, out, want)}")
-        check(torch.equal(out, again), f"flash_attention hd=168 {label}: two calls differ")
+              f"flash_attention hd={hd} {label}: max err {max_err(torch, out, want)}")
+        check(torch.equal(out, again), f"flash_attention hd={hd} {label}: two calls differ")
         G = Hq // Kv
         qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
                       v.repeat_interleave(G, dim=2).transpose(1, 2))
@@ -724,7 +734,7 @@ def gemma3_kernel_checks(torch, ref, kernels):
         flops = 4 * hd * Hq * pairs
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == bf else FP32_FLOPS)
         empty = int((~mask.any(-1)).sum())
-        print(f"flash_attention hd=168 {label}: SDPA backend {backend}; {pairs} (query, key) "
+        print(f"flash_attention hd={hd} {label}: SDPA backend {backend}; {pairs} (query, key) "
               f"pairs, {empty} query rows with no valid key (padded rows included)")
         rows.append({"name": "flash_attention",
                      "shape": f"B={B} S={S} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} causal "
@@ -736,13 +746,12 @@ def gemma3_kernel_checks(torch, ref, kernels):
                      "library_device_ms": device_time_ms(torch, sdpa),
                      "library_backend": backend})
 
-    flash_row(8, 512, H, KV, bf, G3_SERVE_LENS, 0, "gemma3 serve")
-    flash_row(4, 1100, H, KV, bf, (1100, 1030, 900, 20), 1024, "gemma3 window")
-    flash_row(2, 128, 4, 2, f32, (128, 77), 0, "fp32")
+    for spec in flash_rows:
+        flash_row(*spec)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
-    def decode_row(B, Sc, Hq, Kv, dtype, lens, label, sweep=False):
+    def decode_row(B, Sc, Hq, Kv, hd, dtype, lens, label, sweep):
         tol = 2e-2 if dtype == bf else 2e-5
         dl = torch.tensor(lens, dtype=torch.int32, device=dev)
         qd = torch.randn(B, Hq, hd, generator=g, device=dev).to(dtype)
@@ -754,14 +763,14 @@ def gemma3_kernel_checks(torch, ref, kernels):
         want = plain()
         torch.cuda.synchronize()
         check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
-              f"decode_attention hd=168 {label}: max err {max_err(torch, out, want)}")
-        check(torch.equal(out, again), f"decode_attention hd=168 {label}: two calls differ")
+              f"decode_attention hd={hd} {label}: max err {max_err(torch, out, want)}")
+        check(torch.equal(out, again), f"decode_attention hd={hd} {label}: two calls differ")
         qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
         dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
         sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask,
                                                       enable_gqa=True)
         check(torch.allclose(sdpa()[:, :, 0].float(), want.float(), rtol=tol, atol=tol),
-              f"SDPA yardstick hd=168 {label} disagrees with the plain version")
+              f"SDPA yardstick hd={hd} {label} disagrees with the plain version")
         backend = sdpa_backend(torch, qdt, kct, vct, dmask, enable_gqa=True)
         n_keys = int(dl.long().sum())
         eb = 2 if dtype == bf else 4
@@ -799,9 +808,10 @@ def gemma3_kernel_checks(torch, ref, kernels):
                 step = torch.exp2(torch.floor(torch.log2(
                     want.float().abs().clamp_min(1e-30))) - 7)
                 check(bool(((got.float() - want.float()).abs() <= step + 2e-6).all()),
-                      f"decode_attention hd=168 plan {p}: more than one bf16 step from the "
+                      f"decode_attention hd={hd} plan {p}: more than one bf16 step from the "
                       f"plain version (max|err| {max_err(torch, got, want)})")
-                check(torch.equal(got, got2), f"decode_attention hd=168 plan {p}: two calls differ")
+                check(torch.equal(got, got2),
+                      f"decode_attention hd={hd} plan {p}: two calls differ")
                 row["split_sweep"].append({
                     "plan": list(p), "device_ms": device_time_ms(torch, forced, iters=50),
                     "cold_device_ms": time_ms_cold(torch, forced, flush)[1],
@@ -811,13 +821,53 @@ def gemma3_kernel_checks(torch, ref, kernels):
                 f"max|err| {e['max_abs_err']:.3g}" for e in row["split_sweep"]))
         rows.append(row)
 
-    decode_row(8, 576, H, KV, bf, (576, 301, 258, 540, 400, 575, 267, 449), "gemma3 serve",
-               sweep=True)
-    decode_row(4, 1024, H, KV, bf, (1024, 1024, 1024, 577), "gemma3 ring")
-    decode_row(4, 100, 4, 2, f32, (100, 1, 57, 33), "fp32")
+    for spec in decode_rows:
+        decode_row(*spec)
     del flush
     report_rows(rows)
+    print(f"{what}: {len(rows)} kernel rows held")
     return rows
+
+
+DECODE_SERVE_LENS = (576, 301, 258, 540, 400, 575, 267, 449)
+
+
+def gemma3_kernel_checks(torch, ref, kernels):
+    """Phase 3, Gemma3-27B's head width (hd=168, 32 query heads on 16 KV
+    heads), through ``width_checks``: flash at the serve phases' B=8, S=512
+    with their ragged lengths; at B=4, S=1,100 with the 1,024-key window (a
+    20-token row whose padded queries past 1,044 have no valid key); decode
+    at B=8, Sc=576 (G=2, with the split sweep) and on 1,024-slot rings; fp32
+    flash and decode at a small shape. The kernel's tiles are 192 columns
+    wide: 14% more P.V work than the bound counts."""
+    bf, f32 = torch.bfloat16, torch.float32
+    H, KV, hd = 32, 16, 168
+    flash = [(8, 512, H, KV, hd, bf, G3_SERVE_LENS, 0, "gemma3 serve"),
+             (4, 1100, H, KV, hd, bf, (1100, 1030, 900, 20), 1024, "gemma3 window"),
+             (2, 128, 4, 2, hd, f32, (128, 77), 0, "fp32")]
+    decode = [(8, 576, H, KV, hd, bf, DECODE_SERVE_LENS, "gemma3 serve", True),
+              (4, 1024, H, KV, hd, bf, (1024, 1024, 1024, 577), "gemma3 ring", False),
+              (4, 100, 4, 2, hd, f32, (100, 1, 57, 33), "fp32", False)]
+    return width_checks(torch, ref, kernels, flash, decode, seed=19, what="gemma3 kernels")
+
+
+def moe_kernel_checks(torch, ref, kernels):
+    """Phase 3, the MoE configs' heads, through ``width_checks``: Qwen3-MoE
+    (64 query heads on 4 KV heads, hd=64, G=16: decode in 2 head tiles of 8)
+    and Kimi-K2 (64 on 8, hd=112: flash tiles of 128 columns, 14% more P.V
+    work than the bound counts; decode 8-lane rows with 7 lanes of 16
+    channels, 2 head tiles of 4), flash at the serve phases' B=8, S=512 and
+    decode at B=8, Sc=576 with their ragged lengths, in bf16 (Kimi's decode
+    with the split sweep); fp32 flash and decode at hd=112 at a small
+    shape."""
+    bf, f32 = torch.bfloat16, torch.float32
+    flash = [(8, 512, 64, 4, 64, bf, G3_SERVE_LENS, 0, "qwen3-moe serve"),
+             (8, 512, 64, 8, 112, bf, G3_SERVE_LENS, 0, "kimi serve"),
+             (2, 128, 8, 1, 112, f32, (128, 77), 0, "fp32")]
+    decode = [(8, 576, 64, 4, 64, bf, DECODE_SERVE_LENS, "qwen3-moe serve", False),
+              (8, 576, 64, 8, 112, bf, DECODE_SERVE_LENS, "kimi serve", True),
+              (4, 100, 8, 1, 112, f32, (100, 1, 57, 33), "fp32", False)]
+    return width_checks(torch, ref, kernels, flash, decode, seed=20, what="moe kernels")
 
 
 def report_rows(rows) -> None:
@@ -851,47 +901,65 @@ def report_rows(rows) -> None:
               f"({100 * r['device_bound_share']:.3g}% device){cold}")
 
 
-# each served model: generations per prompt, the kernels its path runs, and
-# whether one prefill and one decode step are profiled
+# each served model: generations per prompt, the kernels its path runs,
+# whether one prefill and one decode step are profiled, and the depth it is
+# cut to (None: its full depth)
 DENSE = ("flash_attention", "decode_attention", "prod_head")
 SERVE_PHASES = (
-    ("llama3-8b", 4, DENSE, True),
-    ("zamba2-1.2b", 4, ("ssd_scan", "flash_attention", "decode_attention", "prod_head"), True),
-    ("mamba2-130m", 2, ("ssd_scan", "prod_head"), True),
-    ("qwen2.5-7b", 4, DENSE, True),
-    ("granite-20b", 2, DENSE, False),
-    ("minicpm-2b", 2, DENSE, False),
-    ("yi-34b", 2, DENSE, True),
-    ("gemma3-27b", 2, DENSE, True),
+    ("llama3-8b", 4, DENSE, True, None),
+    ("zamba2-1.2b", 4, ("ssd_scan", "flash_attention", "decode_attention", "prod_head"), True,
+     None),
+    ("mamba2-130m", 2, ("ssd_scan", "prod_head"), True, None),
+    ("qwen2.5-7b", 4, DENSE, True, None),
+    ("granite-20b", 2, DENSE, False, None),
+    ("minicpm-2b", 2, DENSE, False, None),
+    ("yi-34b", 2, DENSE, True, None),
+    ("gemma3-27b", 2, DENSE, True, None),
+    # the MoE family at full width, cut to what one 80 GB card holds:
+    # 12 of 94 layers (61.34 GB of bf16 weights) and 1 of 61 (38.85 GB; its
+    # init peaks near 61 GB, drawing a 22.5 GB fp32 expert tensor)
+    ("qwen3-moe-235b-a22b", 2, DENSE, True, 12),
+    ("kimi-k2-1t-a32b", 2, DENSE, True, 1),
 )
 
 
 def expected_launches(kinds, r: int, max_new: int):
     """Launches of each kernel when every row of every generation runs to
     max_new (with random weights EOS is rare): one scan per SSM layer and
-    one flash call per attention layer in each prefill, one decode call per
-    attention layer in each of the max_new steps, and two head calls."""
+    one flash call per attention layer (a ``moe`` layer is one: attention,
+    then the experts) in each prefill, one decode call per attention layer
+    in each of the max_new steps, and two head calls."""
     n_attn = sum(k != "ssm" for k in kinds)
     return {"ssd_scan": r * sum(k == "ssm" for k in kinds), "flash_attention": r * n_attn,
             "decode_attention": r * max_new * n_attn, "prod_head": 2}
 
 
 def model_bounds(cfg, kinds, n_params: int, B: int, Sp: int, cache_len: int,
-                 n_keys: int = 0):
+                 n_keys: int = 0, experts_read=None):
     """Least times of one prefill and one decode step of the served model.
     Prefill: the weight products alone (2 FLOPs per weight applied per
-    token; attention scores and the scan left out) at the bf16 peak. Decode
-    step: every weight read once (the shared block once, an untied
-    embedding table only at its B rows), the SSM states read and written in
-    fp32 and the K/V read, over the memory rate: ``n_keys`` keys a layer
-    (summed over the rows), or all B x cache_len slots."""
+    token; attention scores and the scan left out) at the bf16 peak; a MoE
+    layer applies its attention, its k routed experts, its shared experts
+    and its router to each token. Decode step: every weight read once (the
+    shared block once, an untied embedding table only at its B rows), the
+    SSM states read and written in fp32 and the K/V read, over the memory
+    rate: ``n_keys`` keys a layer (summed over the rows), or all B x
+    cache_len slots. A MoE layer's experts are all read (what the capacity
+    design reads) unless ``experts_read`` says how many the step's tokens
+    routed to, over all MoE layers: then only those."""
     d, hd = cfg.d_model, cfg.head_dim
     H, P, N = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
     ssm_w = d * (2 * H * P + 2 * N + H) + H * P * d
-    attn_w = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
-    applied = sum(ssm_w if k == "ssm" else attn_w for k in kinds)
+    attn_w = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    expert_w = 3 * d * cfg.moe_d_ff
+    per_kind = {"ssm": ssm_w,
+                "moe": attn_w + (cfg.n_experts_per_token + cfg.n_shared_experts) * expert_w
+                + d * cfg.n_experts}
+    applied = sum(per_kind.get(k, attn_w + 3 * d * cfg.d_ff) for k in kinds)
     prefill_flops = 2 * B * Sp * applied
     weights = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * d)
+    if experts_read is not None:
+        weights -= (sum(k == "moe" for k in kinds) * cfg.n_experts - experts_read) * expert_w
     n_ssm = sum(k == "ssm" for k in kinds)
     n_attn = len(kinds) - n_ssm
     step_bytes = (2 * weights + n_ssm * 2 * 4 * B * H * P * N
@@ -913,8 +981,60 @@ def served_prompts(vocab: int):
     return prompts, plens
 
 
-def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, profile: bool):
-    """Phase 4 for one model: the port's main path at full width and depth."""
+class routing:
+    """Within the block, ``models/moe.py``'s ``_dispatch`` records, per call
+    (one per MoE layer), its capacity, how many (token, j) pairs each expert
+    was given and which pairs were dropped (on the host; for the report
+    only, outside every timed call)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.orig = self.moe._dispatch
+
+        def rec(local_ids, combine_w, E_local, capacity):
+            out = self.orig(local_ids, combine_w, E_local, capacity)
+            self.calls.append({
+                "cap": capacity,
+                "counts": self.moe._counts(local_ids.reshape(-1), E_local).cpu(),
+                "dropped": (out[3] == E_local * capacity).cpu()})
+            return out
+
+        self.moe._dispatch = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch = self.orig
+
+
+def report_routing(name: str, prefill_calls, step_calls, plens, Sp: int):
+    """Per MoE layer at the prefill: the capacity, the pairs dropped (and of
+    them, those of real tokens: the rest are pads, which route too), and
+    the experts no pair went to; at the decode step, the distinct experts
+    routed. Returns the experts the step routed to, summed over layers."""
+    import numpy as np
+
+    real = (np.arange(len(plens) * Sp) % Sp) < np.repeat(plens, Sp)
+    for i, c in enumerate(prefill_calls):
+        dropped = c["dropped"].numpy()
+        print(f"serve {name}: prefill layer {i}: capacity {c['cap']} slots an expert "
+              f"({c['counts'].numel()} experts, {dropped.size} (token, j) pairs), "
+              f"{int(dropped.sum())} pairs dropped ({int(dropped[real].sum())} of real tokens, "
+              f"{int(dropped[real].any(axis=1).sum())} real tokens lost one or more), "
+              f"{int((c['counts'] == 0).sum())} experts with no token, busiest expert "
+              f"{int(c['counts'].max())} pairs")
+    routed = [int((c["counts"] > 0).sum()) for c in step_calls]
+    drops = sum(int(c["dropped"].sum()) for c in step_calls)
+    print(f"serve {name}: decode step: distinct experts routed per layer {routed} (capacity "
+          f"{step_calls[0]['cap']}, {drops} pairs dropped)")
+    return sum(routed)
+
+
+def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, profile: bool,
+          depth=None):
+    """Phase 4 for one model: the port's main path at full width, at full
+    depth or cut to ``depth`` layers."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -923,8 +1043,16 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
     from repro_torch.models.transformer import layer_kinds
     from repro_torch.serving.engine import RealEngine
 
+    from repro_torch.models import moe
+
     dev = torch.device("cuda")
     cfg = get_config(name)                   # each model in its own dtype (bf16)
+    if depth:
+        print(f"serve {name}: depth cut to {depth} of {cfg.n_layers} layers "
+              f"(param_count() {cfg.param_count() / 1e9:.2f} B at full depth, "
+              f"{cfg.with_overrides(n_layers=depth).param_count() / 1e9:.2f} B at {depth}); "
+              f"widths as published")
+        cfg = cfg.with_overrides(n_layers=depth)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -934,7 +1062,8 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
     kinds = layer_kinds(cfg)
     print(f"serve {name}: {n_params / 1e9:.3f}B params ({cfg.dtype}, d={cfg.d_model}, "
           f"{sum(k == 'ssm' for k in kinds)} SSM + {sum(k != 'ssm' for k in kinds)} attention "
-          f"layers, {sum(k == 'local' for k in kinds)} of them windowed) initialised in "
+          f"layers, {sum(k == 'local' for k in kinds)} of them windowed, "
+          f"{sum(k == 'moe' for k in kinds)} MoE) initialised in "
           f"{time.perf_counter() - t0:.1f} s; param_count() {cfg.param_count() / 1e9:.3f}B "
           f"(the reference's formula, which counts a gelu_gated MLP as two matrices)")
 
@@ -1000,6 +1129,22 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
               f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP of weight products); decode step "
               f"(B={B}, Sc={Sp + max_new}) {step_ms:.2f} ms, bound {bytes_ms:.3f} ms "
               f"({step_bytes / 1e9:.2f} GB)")
+        if cfg.family == "moe":
+            with routing(moe) as pre:
+                prefill()
+            with routing(moe) as dec:
+                step()
+            read = report_routing(name, pre.calls, dec.calls, plens, Sp)
+            _, _, routed_bytes, routed_ms = model_bounds(cfg, kinds, n_params, B, Sp,
+                                                         Sp + max_new, experts_read=read)
+            n_moe, ew = sum(k == "moe" for k in kinds), 3 * cfg.d_model * cfg.moe_d_ff
+            slot_flops = 2 * sum(c["cap"] * c["counts"].numel() for c in pre.calls) * ew
+            pair_flops = 2 * n_moe * B * Sp * cfg.n_experts_per_token * ew
+            print(f"serve {name}: decode step bound {bytes_ms:.3f} ms with every expert read "
+                  f"(the capacity design), {routed_ms:.3f} ms ({routed_bytes / 1e9:.2f} GB) "
+                  f"with only the {read} experts this step routed to; prefill expert products "
+                  f"over the capacity slots {slot_flops / 1e12:.2f} TFLOP, "
+                  f"{slot_flops / pair_flops:.4f}x the routed pairs' {pair_flops / 1e12:.2f}")
         if profile:
             device_profile(torch, prefill, f"{name} prefill")
             device_profile(torch, step, f"{name} decode step")
@@ -1403,7 +1548,7 @@ def train_phase(torch, counters):
     batch = next(it)
     tokens = batch["tokens"]
     with torch.no_grad():
-        want, _ = train_forward(params, cfg, tokens)
+        want, _, _ = train_forward(params, cfg, tokens)
         got, _, _ = model.prefill(params, tokens)
         for c in counters.values():
             c.launches = 0
@@ -2228,10 +2373,11 @@ def main() -> int:
                "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
     rows = kernel_checks(torch, ref, kernels)
     rows += gemma3_kernel_checks(torch, ref, kernels)
+    rows += moe_kernel_checks(torch, ref, kernels)
     by_phase = {}
-    for i, (name, r, on_path, profile) in enumerate(SERVE_PHASES):
+    for i, (name, r, on_path, profile, depth) in enumerate(SERVE_PHASES):
         by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0),
-                               profile=profile)
+                               profile=profile, depth=depth)
         gc.collect()                 # each model's weights go before the next's
         torch.cuda.empty_cache()
     by_phase["long"] = long_phase(torch, ref, kernels)

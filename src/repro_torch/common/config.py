@@ -32,6 +32,13 @@ class ModelConfig:
     use_mrope: bool = False
     qk_norm: bool = False
 
+    # --- MoE ---------------------------------------------------------------
+    n_experts: int = 0
+    n_experts_per_token: int = 0
+    n_shared_experts: int = 0        # kimi-k2 style always-on shared expert(s)
+    moe_d_ff: int = 0                # per-expert hidden size (0 -> d_ff)
+    router_aux_coef: float = 0.01
+
     # --- SSM (mamba2 / zamba2) ----------------------------------------------
     ssm_state: int = 0               # d_state N
     ssm_heads: int = 0               # number of SSD heads (0 -> derived)
@@ -54,6 +61,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.family == "moe" and self.moe_d_ff == 0:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
         if self.n_heads % max(self.n_kv_heads, 1) and self.family != "ssm":
             raise ValueError(f"{self.name}: n_heads={self.n_heads} not "
                              f"divisible by kv={self.n_kv_heads}")
@@ -73,25 +82,44 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, the reference's formula for the families
-        the port builds (dense, ssm, hybrid; the shared block counted once).
-        Like the reference's, it counts a ``gelu_gated`` MLP as two matrices
-        though it holds three (Gemma3-27B: 21.12 B here, 28.29 B in its
-        leaves)."""
+        the port builds (dense, moe, ssm, hybrid; the shared block counted
+        once; a MoE layer's experts, shared experts and router). Like the
+        reference's, it counts a ``gelu_gated`` MLP as two matrices though it
+        holds three (Gemma3-27B: 21.12 B here, 28.29 B in its leaves)."""
         d, L, V = self.d_model, self.n_layers, self.vocab_size
-        hd = self.head_dim
         emb = V * d * (1 if self.tie_embeddings else 2)
-        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
-        ffn = (3 if self.act == "silu" else 2) * d * self.d_ff
+        attn = self._attn_params()
+        ffn = lambda ff: (3 if self.act == "silu" else 2) * d * ff
         if self.family in ("dense", "vlm"):
-            total = L * (attn + ffn)
+            total = L * (attn + ffn(self.d_ff))
+        elif self.family == "moe":
+            experts = (self.n_experts + self.n_shared_experts) * ffn(self.moe_d_ff)
+            total = L * (attn + experts + d * self.n_experts)
         elif self.family == "ssm":
             total = L * self._ssm_layer_params()
         elif self.family == "hybrid":
-            total = L * self._ssm_layer_params() + attn + ffn
+            total = L * self._ssm_layer_params() + attn + ffn(self.d_ff)
         else:
             raise ValueError(f"{self.name}: no parameter count for family {self.family!r} "
                              "in the port yet")
         return int(total + emb)
+
+    def active_param_count(self) -> int:
+        """Parameters applied per token: a MoE layer's top-k and shared
+        experts (gated, 3 matrices each) and its router; all of any other
+        family."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        ffn = 3 * d * self.moe_d_ff
+        layer = (self._attn_params() + (self.n_experts_per_token + self.n_shared_experts) * ffn
+                 + d * self.n_experts)
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(self.n_layers * layer + emb)
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
 
     def _ssm_layer_params(self) -> int:
         d = self.d_model
@@ -103,12 +131,13 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant of the same family: 2 layers, d_model<=256 (the
-        reference's ``reduced``): SSM state<=16 in 4 heads of 32, a hybrid
+        reference's ``reduced``): 4 experts, top-2, of width 128 and at most
+        one shared expert, SSM state<=16 in 4 heads of 32, a hybrid
         attending every layer, a window of at most 16, a local/global mix of
         one local layer and one full one."""
-        if self.family not in ("dense", "ssm", "hybrid"):
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"{self.name}: reduced() covers the dense, ssm and hybrid families "
+                f"{self.name}: reduced() covers the dense, moe, ssm and hybrid families "
                 "(ROADMAP Queue 1 item 11)")
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4)
@@ -118,6 +147,9 @@ class ModelConfig:
         kw = dict(name=self.name + "-smoke", n_layers=2, d_model=d, n_heads=heads,
                   n_kv_heads=kv, head_dim=d // heads, d_ff=min(self.d_ff, 512) or self.d_ff,
                   vocab_size=min(self.vocab_size, 512))
+        if self.family == "moe":
+            kw.update(n_experts=4, n_experts_per_token=2, moe_d_ff=128,
+                      n_shared_experts=min(self.n_shared_experts, 1))
         if self.family in ("ssm", "hybrid"):
             kw.update(ssm_state=min(self.ssm_state, 16), ssm_heads=4, ssm_head_dim=32,
                       ssm_chunk=16)

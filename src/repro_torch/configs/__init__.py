@@ -8,8 +8,9 @@ from __future__ import annotations
 from typing import List
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.configs import (gemma3_27b, granite_20b, llama3_8b, mamba2_130m,
-                                 minicpm_2b, qwen25_7b, tiny_lm, yi_34b, zamba2_1p2b)
+from repro_torch.configs import (gemma3_27b, granite_20b, kimi_k2_1t_a32b, llama3_8b,
+                                 mamba2_130m, minicpm_2b, qwen3_moe_235b_a22b, qwen25_7b,
+                                 tiny_lm, yi_34b, zamba2_1p2b)
 
 _MAKERS = {
     "llama3-8b": llama3_8b.make_config,
@@ -18,6 +19,8 @@ _MAKERS = {
     "minicpm-2b": minicpm_2b.make_config,
     "yi-34b": yi_34b.make_config,
     "gemma3-27b": gemma3_27b.make_config,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.make_config,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b.make_config,
     "tiny-lm": tiny_lm.make_config,
     "mamba2-130m": mamba2_130m.make_config,
     "zamba2-1.2b": zamba2_1p2b.make_config,

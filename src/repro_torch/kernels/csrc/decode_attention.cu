@@ -40,6 +40,11 @@
 //    block, 2 rows a thread in flight in bf16 (1 in fp32), 21 KB a block.
 //    A block attends at most 2 heads (GT <= 2) there, which keeps q and
 //    the accumulators (2 x 24 x 2 fp32) in registers.
+//  * hd = 112 (Kimi-K2) is 14 chunks of 8: the same 8-lane groups, 7 lanes
+//    of 16 channels (two 16-byte loads of bf16, four of fp32): 16 rows a
+//    block, 2 in flight a thread in bf16 (1 in fp32), 14 KB a block. A
+//    block attends at most 4 heads there (s_acc of 8 heads would pass the
+//    48 KB of static shared memory), so Kimi's G = 8 runs 2 head tiles.
 //  * At the end the block's row groups meet once in shared memory. A block
 //    that is its row's only split writes the output. Otherwise it writes its
 //    partial (m, l, acc) to the wrapper's fp32 workspace and counts itself
@@ -61,13 +66,14 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Lanes of a key row (a power of two: the shuffles stay inside it) and
-// channels a lane owns: hd/8 lanes of 8 channels, or 8 lanes (7 loading) of
-// 24 channels at hd = 168.
-__host__ __device__ constexpr int row_lanes(int hd) { return hd == 168 ? 8 : hd / 8; }
-__host__ __device__ constexpr int lane_chans(int hd) { return hd == 168 ? 24 : 8; }
+// channels a lane owns: hd/8 lanes of 8 channels, or, where hd/8 is no power
+// of two, 8 lanes (7 loading) of hd/7 channels: 16 at hd = 112, 24 at 168.
+__host__ __device__ constexpr bool seven_lanes(int hd) { return hd == 112 || hd == 168; }
+__host__ __device__ constexpr int row_lanes(int hd) { return seven_lanes(hd) ? 8 : hd / 8; }
+__host__ __device__ constexpr int lane_chans(int hd) { return seven_lanes(hd) ? hd / 7 : 8; }
 
 // key rows a thread has in flight: 4 in bf16, 2 in fp32 (16 KB a block);
-// 2 and 1 at hd = 168 (21 KB)
+// 2 and 1 where a lane owns 16 or 24 channels (14 KB at hd = 112, 21 KB at 168)
 __host__ __device__ constexpr int rows_in_flight(int hd, int elem_bytes) {
   return (elem_bytes == 2 ? 4 : 2) / (lane_chans(hd) == 8 ? 1 : 2);
 }
@@ -78,7 +84,9 @@ __host__ __device__ constexpr int rows_per_pass(int hd, int elem_bytes) {
 }
 
 // Query heads a block attends at most (the registers of q and the accumulators).
-__host__ __device__ constexpr int max_head_tile(int hd) { return hd == 168 ? 2 : 8; }
+__host__ __device__ constexpr int max_head_tile(int hd) {
+  return hd == 168 ? 2 : hd == 112 ? 4 : 8;
+}
 
 struct Plan {
   int gt;        // query heads a block attends: G rounded up to a power of two, at most
@@ -365,8 +373,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   return cudaGetLastError();
 }
 
-// The head tiles above max_head_tile(HD) are not instantiated (at hd = 168
-// their s_acc would pass the 48 KB of static shared memory).
+// The head tiles above max_head_tile(HD) are not instantiated (at hd = 112
+// and 168 their s_acc would pass the 48 KB of static shared memory).
 template <typename T, int HD>
 cudaError_t by_group(int gt, const void* q, const void* k, const void* v, const int* lengths,
                      float* pml, float* pacc, int* cnt, void* out, cudaStream_t s, int B,
@@ -391,6 +399,7 @@ cudaError_t by_head_dim(int hd, int gt, const void* q, const void* k, const void
   switch (hd) {
     case 32: return by_group<T, 32>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
     case 64: return by_group<T, 64>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
+    case 112: return by_group<T, 112>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
     case 128: return by_group<T, 128>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
     case 168: return by_group<T, 168>(gt, q, k, v, lengths, pml, pacc, cnt, out, s, B, Sc, H, KV, chunk, n_splits, qscale);
     default: return cudaErrorInvalidValue;
@@ -399,7 +408,8 @@ cudaError_t by_head_dim(int hd, int gt, const void* q, const void* k, const void
 
 bool valid(int B, int Sc, int H, int KV, int hd, int dtype) {
   return B >= 1 && Sc >= 1 && KV >= 1 && H >= KV && H % KV == 0 &&
-         (hd == 32 || hd == 64 || hd == 128 || hd == 168) && (dtype == kF32 || dtype == kBF16);
+         (hd == 32 || hd == 64 || hd == 112 || hd == 128 || hd == 168) &&
+         (dtype == kF32 || dtype == kBF16);
 }
 
 }  // namespace

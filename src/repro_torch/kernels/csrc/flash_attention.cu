@@ -47,11 +47,17 @@
 //    168 columns are stored. The tile costs 192/168 = 14% more P V work and
 //    shared memory than the true width (144 KB: Q 48 KB, K/V 2 x 2 x 24 KB),
 //    and 96 fp32 accumulators a thread for O.
+//  * hd = 112 (Kimi-K2) takes the same road at two panels: tiles of 128
+//    columns, the tensor maps at 112 (TMA zero-fills columns 112-127), Q K^T
+//    in 7 exact K steps, P V at N = 128 (the hd = 128 instruction) with 112
+//    columns stored: 14% more P V work than the true width, and hd = 128's
+//    registers and 96 KB of shared memory.
 //
 // fp32 (tiny-lm only, off the main path): flash_fwd_simt, both products on
 // the CUDA cores in fp32 from shared memory, 64 query rows by 32-key tiles.
 // A thread owns 16-column strides of O: ceil(hd / 16) of them, the V tile
-// padded with zero columns to a whole number (176 at hd = 168).
+// padded with zero columns to a whole number (176 at hd = 168; 7 exact
+// strides at hd = 112).
 // This is a branch on dtype, not a fall-back: TF32 would miss the fp32
 // tolerance of 2e-5 and wgmma has no fp32 inputs. No failure of the bf16
 // kernel ever routes here.
@@ -83,7 +89,7 @@ constexpr int kStages = 2;     // K/V tiles in the shared-memory ring
 
 template <int HD>
 struct Tile {
-  static constexpr int TW = HD == 168 ? 192 : HD;  // columns of a tile: whole panels
+  static constexpr int TW = HD <= 64 ? HD : (HD + 63) / 64 * 64;  // whole panels
   static constexpr int KD = (HD + 15) / 16 * 16;   // columns Q K^T runs over
   static constexpr int BN = TW >= 128 ? 64 : 128;  // keys per KV tile
   static constexpr int SWZ = HD >= 64 ? 128 : 64;  // bytes per shared-memory row
@@ -124,14 +130,15 @@ __device__ __forceinline__ int empty_row_pad(int Skv) {
 // The empty-row value of a warp that holds such a row: every key's V row of
 // (b, KV head g) summed in fp32, 16 bytes a lane, the lanes that share a
 // column chunk then combined; out[jn][0..1] get columns 8 jn + cq, + 1 (the
-// thread's accumulator columns) for jn < HD / 8. Called by all 32 lanes; at
-// hd = 168 (21 chunks) lanes 21-31 read nothing.
+// thread's accumulator columns) for jn < HD / 8. Called by all 32 lanes. Where
+// the chunks are no power of two (14 at hd = 112, 21 at hd = 168) one key is
+// read at a time, on lanes 0 .. HD / 8 - 1, and the other lanes read nothing.
 template <int HD>
 __device__ __forceinline__ void empty_row_sums(const __nv_bfloat16* __restrict__ vg, int b,
                                                int g, int Skv, int KV, int lane, int cq,
                                                float (*out)[2]) {
   constexpr int NC = HD / 8;   // 16-byte chunks of a key row
-  constexpr int KL = 32 / NC;  // keys the warp reads at once
+  constexpr int KL = (NC & (NC - 1)) ? 1 : 32 / NC;  // keys the warp reads at once
   const int cc = lane % NC;
   float acc[8];
 #pragma unroll
@@ -536,7 +543,7 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int i = 0; i < 4; ++i)
     empty = empty || (q0 + ty + 16 * i < Sq && m_s[ty + 16 * i] == kNegInf);
   if (__syncthreads_or(empty)) {
-    constexpr int NPART = kThreads / HD;  // threads a column (1 at hd = 168)
+    constexpr int NPART = kThreads / HD;  // threads a column (2 at hd = 112, 1 at 168)
     float sum = 0.f;
     if (tid < NPART * HD)
       for (int kp = tid / HD; kp < Skv; kp += NPART)
@@ -594,6 +601,7 @@ cudaError_t by_head_dim(int dtype, int hd, const void* q, const void* k, const v
     switch (hd) {
       case 32: return launch_sm90<32>(FLASH_ARGS);
       case 64: return launch_sm90<64>(FLASH_ARGS);
+      case 112: return launch_sm90<112>(FLASH_ARGS);
       case 128: return launch_sm90<128>(FLASH_ARGS);
       case 168: return launch_sm90<168>(FLASH_ARGS);
     }
@@ -601,6 +609,7 @@ cudaError_t by_head_dim(int dtype, int hd, const void* q, const void* k, const v
     switch (hd) {
       case 32: return simt::launch<32>(FLASH_ARGS);
       case 64: return simt::launch<64>(FLASH_ARGS);
+      case 112: return simt::launch<112>(FLASH_ARGS);
       case 128: return simt::launch<128>(FLASH_ARGS);
       case 168: return simt::launch<168>(FLASH_ARGS);
     }

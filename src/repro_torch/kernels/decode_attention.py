@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128, 168)
+HEAD_DIMS = (32, 64, 112, 128, 168)
 Plan = Tuple[int, int, int]   # (query heads a block, splits, keys a split)
 _PLANS: Dict[tuple, Tuple[Plan, Tuple[int, int]]] = {}
 

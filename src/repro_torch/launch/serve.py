@@ -18,6 +18,10 @@
                weights, or the weights of a ``launch/train.py`` checkpoint
                (``--ckpt``; its whole train state, AdamW moments included,
                is checked against the model's before the params are taken).
+               A model whose weights (``param_count()`` in its dtype) pass
+               the card's memory is refused before anything is allocated:
+               Qwen3-MoE-235B-A22B (463 GB of bf16) and Kimi-K2 (2.09 TB)
+               at full depth; ``chip_smoke.py`` serves them cut in depth.
 
 ``--device`` defaults to ``cuda``.
 
@@ -25,6 +29,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model tiny-lm
     PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model qwen2.5-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model gemma3-27b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode real --model kimi-k2-1t-a32b  # refused
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.config import ModelConfig, PredictorConfig, TrainConfig
-from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core import bins as bins_mod
 from repro_torch.core import targets as targets_mod
@@ -129,9 +134,23 @@ def run_sim(args):
     return rows
 
 
+def refuse_if_too_large(cfg: ModelConfig, total_memory: int) -> None:
+    """Exit, naming the sizes, when the weights alone (``param_count()`` in
+    the config's dtype) pass the card's ``total_memory`` bytes."""
+    need = cfg.param_count() * torch_dtype(cfg.dtype).itemsize
+    if need > total_memory:
+        raise SystemExit(
+            f"{cfg.name}: {need / 1e9:.1f} GB of {cfg.dtype} weights ({cfg.n_layers} layers, "
+            f"param_count() {cfg.param_count() / 1e9:.2f} B) do not fit the card's "
+            f"{total_memory / 1e9:.1f} GB; not allocating. Serve it cut in depth "
+            f"(get_config(...).with_overrides(n_layers=...)), as chip_smoke.py does.")
+
+
 def run_real(args) -> Dict[str, object]:
     dev = resolve_device(args.device)
     cfg = serving_config(args.model)
+    if dev.type == "cuda":
+        refuse_if_too_large(cfg, torch.cuda.get_device_properties(dev).total_memory)
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
     if args.ckpt:

@@ -1,10 +1,13 @@
 """Model facade: ``build_model(cfg)`` returns a :class:`Model` whose methods
 are plain functions of (params, batch).
 
-The reference's ``Runtime`` knobs (block sizes, causal skip, MoE capacity,
-mesh) are read by nothing in the port — the kernels choose their own tiles
-and always skip fully masked tiles — so the port has no ``Runtime``; the one
-knob it reads, ``remat``, is an argument of :meth:`Model.loss`.
+The port has no ``Runtime``: of the reference's knobs it reads two. The MoE
+``capacity_factor`` (default 1.25, 0 = no drop, as the reference's) is a
+field of :class:`Model` and reaches every MoE layer of ``loss``, ``prefill``
+and ``decode_step``; ``remat`` is an argument of :meth:`Model.loss`. The
+others (block sizes, causal skip, mesh, the expert-parallel slack and FSDP
+mode) are read by nothing: the kernels choose their own tiles and always skip
+fully masked tiles, and the port runs on one device.
 The ProD predictor head consumes ``hidden`` from prefill: the served model's
 last-layer hidden state of the last prompt token (paper §2.4).
 """
@@ -31,6 +34,7 @@ def last_token_hidden(hidden: torch.Tensor, lengths: torch.Tensor) -> torch.Tens
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    capacity_factor: float = 1.25
 
     @property
     def dtype(self) -> torch.dtype:
@@ -47,23 +51,27 @@ class Model:
 
     def loss(self, params, batch: Dict[str, torch.Tensor], remat: str = "none"):
         """Training objective: next-token CE over ``batch["tokens"]``, masked
-        by ``batch["loss_mask"]`` if present. ``remat="full"`` recomputes each
-        layer in the backward pass. Returns (loss, metrics)."""
+        by ``batch["loss_mask"]`` if present, plus the MoE router loss.
+        ``remat="full"`` recomputes each layer in the backward pass. Returns
+        (loss, {"loss": the CE, "aux": the router loss})."""
         return transformer.lm_loss(params, self.cfg, batch["tokens"],
                                    loss_mask=batch.get("loss_mask"),
-                                   remat=remat == "full")
+                                   remat=remat == "full",
+                                   capacity_factor=self.capacity_factor)
 
     def prefill(self, params, tokens: torch.Tensor,
                 attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all"):
         """Returns (logits, hidden (B, S, d), the per-layer cache: (k, v) for
         attention layers, {"h", "conv"} for SSM layers)."""
         return transformer.forward(params, self.cfg, tokens, attn_valid=attn_valid,
-                                   logits_mode=logits_mode)
+                                   logits_mode=logits_mode,
+                                   capacity_factor=self.capacity_factor)
 
     def decode_step(self, params, tokens, cache, pos, lengths):
         """tokens, pos (B,), lengths (B,) int32. Returns (logits, hidden),
         writes the new K/V into ``cache`` and replaces its SSM states."""
-        return transformer.decode_step(params, self.cfg, tokens, cache, pos, lengths)
+        return transformer.decode_step(params, self.cfg, tokens, cache, pos, lengths,
+                                       capacity_factor=self.capacity_factor)
 
     def unembed(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden, params["embed"], params.get("head"))
@@ -79,6 +87,6 @@ class Model:
         return transformer.decode_cache(self.cfg, prefill_cache, cache_len)
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, capacity_factor: float = 1.25) -> Model:
     transformer.check_supported(cfg)
-    return Model(cfg=cfg)
+    return Model(cfg=cfg, capacity_factor=capacity_factor)

@@ -1,5 +1,6 @@
-"""Decoder-only models of the dense, SSM and hybrid families: prefill and
-cached decode; the training forward and its next-token loss (dense only).
+"""Decoder-only models of the dense, MoE, SSM and hybrid families: prefill
+and cached decode; the training forward and its next-token loss (dense and
+MoE).
 
 Architectures follow the reference's *layer plan*: a list of segments, each
 a ``(kinds, n_blocks)`` pair (``repro/models/transformer.py:58-82``):
@@ -7,6 +8,7 @@ a ``(kinds, n_blocks)`` pair (``repro/models/transformer.py:58-82``):
 * uniform dense:   [ (('full',), L) ]
 * dense, windowed: [ (('local',), L) ]
 * gemma3 5:1:      [ (('local',)*5 + ('full',), L//6), (('local',)*(L%6), 1) ]
+* MoE:             [ (('moe',), L) ]
 * mamba2:          [ (('ssm',), L) ]
 * zamba2 hybrid:   [ (('shared_attn',) + ('ssm',)*k, L//k), (('ssm',)*(L%k), 1) ]
 
@@ -40,8 +42,12 @@ take their own rope base (``rope_theta_local``).
 Gemma3's pieces: a local/global mix (``local_global_ratio``: blocks of that
 many ``local`` layers and one ``full`` one, the rest ``local``),
 ``qk_norm`` (``attention.qkv_project``) and the tanh-GELU gated MLP
-(``act="gelu_gated"``, ``layers.mlp_apply``). MoE, M-RoPE and the plain
-two-matrix MLP raise ``NotImplementedError`` until their slices
+(``act="gelu_gated"``, ``layers.mlp_apply``). A ``moe`` layer is
+attention and ``models/moe.py``'s capacity-dispatched experts in place of
+the MLP (``_apply_ffn``, the reference's ``transformer.py:197-207``); the
+serving passes drop its router loss, the training forward sums it over the
+layers and ``lm_loss`` adds ``router_aux_coef`` times it. M-RoPE and the
+plain two-matrix MLP raise ``NotImplementedError`` until their slices
 (ROADMAP.md); the int8 KV cache has no switch in the port yet.
 
 The training forward (:func:`train_forward`, :func:`lm_loss`) runs the
@@ -67,6 +73,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (GATES, ParamSpec, embed_spec, mlp_apply,
                                        mlp_spec, rms_norm, unembed)
+from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.models.rope import angles_by_base, positions_from_tokens
 
 Entry = Union[Tuple[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
@@ -75,7 +82,7 @@ Cache = List[Entry]
 
 def check_supported(cfg: ModelConfig) -> None:
     unsupported = {
-        "family": cfg.family not in ("dense", "ssm", "hybrid"),
+        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid"),
         "use_mrope": cfg.use_mrope,
         "act (the plain two-matrix MLP: Whisper's encdec slice)": cfg.act not in GATES,
     }
@@ -83,7 +90,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet — the port serves "
-            f"the dense, ssm and hybrid families (see ROADMAP.md, queue 1)")
+            f"the dense, moe, ssm and hybrid families (see ROADMAP.md, queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +106,7 @@ class Segment:
 
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
     L = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         if cfg.local_global_ratio > 0:
             blk = ("local",) * cfg.local_global_ratio + ("full",)
             segs = []
@@ -108,7 +115,8 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
             if L % len(blk):
                 segs.append(Segment(("local",) * (L % len(blk)), 1))
             return segs
-        return [Segment(("local" if cfg.attn_window else "full",), L)]
+        kind = "moe" if cfg.family == "moe" else ("local" if cfg.attn_window else "full")
+        return [Segment((kind,), L)]
     if cfg.family == "ssm":
         return [Segment(("ssm",), L)]
     if cfg.family == "hybrid":
@@ -159,6 +167,9 @@ def shared_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
 def _layer_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     if kind in ("full", "local"):
         return shared_block_spec(cfg)
+    if kind == "moe":
+        return {"ln1": _norm(cfg), "attn": attn.attn_spec(cfg), "ln2": _norm(cfg),
+                "moe": moe_spec(cfg)}
     if kind == "ssm":
         return {"ln1": _norm(cfg), "ssm": ssm_mod.ssm_spec(cfg)}
     if kind == "shared_attn":
@@ -182,8 +193,14 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, x, cfg: ModelConfig):
-    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.act)
+def _apply_ffn(lp, x, cfg: ModelConfig, capacity_factor: float):
+    """The layer's FFN on its residual: the MLP, or the MoE experts of a
+    layer that has them. Returns (x, the router's aux loss, None for an MLP)."""
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        y, aux = moe_apply(lp["moe"], h, cfg, capacity_factor=capacity_factor)
+        return x + y, aux
+    return x + mlp_apply(lp["mlp"], h, cfg.act), None
 
 
 def _has_attention(kinds: List[str]) -> bool:
@@ -191,10 +208,13 @@ def _has_attention(kinds: List[str]) -> bool:
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-            attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all"):
+            attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all",
+            capacity_factor: float = 1.25):
     """Prefill pass over (B, S) tokens. ``attn_valid`` (B, S) marks the valid
-    (right-padded) prompt positions. Returns (logits (B, S, V) fp32 or None
-    with ``logits_mode="none"``, hidden (B, S, d), the per-layer cache)."""
+    (right-padded) prompt positions; a MoE layer routes every position, pads
+    included, with ``capacity_factor``. Returns (logits (B, S, V) fp32 or
+    None with ``logits_mode="none"``, hidden (B, S, d), the per-layer
+    cache)."""
     B, S = tokens.shape
     kinds = layer_kinds(cfg)
     x = params["embed"][tokens]
@@ -216,7 +236,7 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
         q, k, v = attn.qkv_project(p["attn"], h, cfg, angles(kind))
         o = attn.prefill_attention(q, k, v, window=_window(cfg, kind),
                                    kv_lengths=kv_lengths)
-        x = _ffn(p, x + attn.out_project(p["attn"], o), cfg)
+        x, _ = _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, capacity_factor)
         cache.append((k, v))
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (unembed(hidden, params["embed"], params.get("head"))
@@ -286,7 +306,8 @@ def decode_cache(cfg: ModelConfig, prefill_cache: Cache, cache_len: int) -> Cach
 
 
 def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Cache, pos: torch.Tensor, lengths: torch.Tensor):
+                cache: Cache, pos: torch.Tensor, lengths: torch.Tensor,
+                capacity_factor: float = 1.25):
     """One decode step for (B,) new tokens at positions ``pos`` (B,);
     ``lengths`` (B,) int32 is each row's valid cache length AFTER this token.
     Writes the new K/V into ``cache`` in place (at ``pos % window`` in a
@@ -316,7 +337,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
         kc[bidx, at] = k[:, 0]
         vc[bidx, at] = v[:, 0]
         o = attn.decode_attention(q, kc, vc, n)
-        x = _ffn(p, x + attn.out_project(p["attn"], o), cfg)
+        x, _ = _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, capacity_factor)
     hidden = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     logits = unembed(hidden, params["embed"], params.get("head"))
     return logits, hidden
@@ -327,18 +348,18 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _train_layer(p, x, cfg: ModelConfig, angles, window: int):
+def _train_layer(p, x, cfg: ModelConfig, angles, window: int, capacity_factor: float):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(p["attn"], h, cfg, angles)
     o = attn.blocked_attention(q, k, v, window=window)
-    return _ffn(p, x + attn.out_project(p["attn"], o), cfg)
+    return _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, capacity_factor)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for a config whose training forward is not ported yet: SSM
     layers (and so the hybrid's shared block, which only Zamba2 has)."""
     kinds = layer_kinds(cfg)
-    if any(kind not in ("full", "local") for kind in kinds):
+    if any(kind not in ("full", "local", "moe") for kind in kinds):
         raise NotImplementedError(
             f"{cfg.name}: training a {cfg.family} model needs the reference's "
             f"ssm_apply_train (repro/models/ssm.py:140), not ported yet "
@@ -346,30 +367,39 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 def train_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-                  remat: bool = False):
+                  remat: bool = False, capacity_factor: float = 1.25):
     """Full-sequence causal pass for training, differentiable by autograd.
-    Returns (logits (B, S, V) fp32, hidden (B, S, d)). With ``remat`` each
-    layer keeps only its input and is recomputed in the backward pass."""
+    Returns (logits (B, S, V) fp32, hidden (B, S, d), the layers' summed
+    router loss (fp32; 0 without MoE layers)). With ``remat`` each layer
+    keeps only its input and is recomputed in the backward pass."""
     check_trainable(cfg)
     B, S = tokens.shape
     kinds = layer_kinds(cfg)
     x = params["embed"][tokens]
     angles = _angles(cfg, kinds, positions_from_tokens(B, S, device=tokens.device))
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for kind, lp in zip(kinds, params["layers"]):
-        args = (lp, x, cfg, angles(kind), _window(cfg, kind))
+        args = (lp, x, cfg, angles(kind), _window(cfg, kind), capacity_factor)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(_train_layer, *args, use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(_train_layer, *args,
+                                                       use_reentrant=False)
         else:
-            x = _train_layer(*args)
+            x, aux = _train_layer(*args)
+        if aux is not None:
+            aux_total = aux_total + aux
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(hidden, params["embed"], params.get("head")), hidden
+    return unembed(hidden, params["embed"], params.get("head")), hidden, aux_total
 
 
 def lm_loss(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-            loss_mask: Optional[torch.Tensor] = None, remat: bool = False):
+            loss_mask: Optional[torch.Tensor] = None, remat: bool = False,
+            capacity_factor: float = 1.25):
     """Next-token cross-entropy, the mean over ``loss_mask[:, 1:]`` where a
-    mask is given. Returns (loss, metrics)."""
-    logits, _ = train_forward(params, cfg, tokens, remat=remat)
+    mask is given, plus ``router_aux_coef`` times the MoE layers' router
+    loss. Returns (that total, {"loss": the cross-entropy, "aux": the router
+    loss}), as the reference's ``lm_loss`` (``transformer.py:506-520``)."""
+    logits, _, aux = train_forward(params, cfg, tokens, remat=remat,
+                                   capacity_factor=capacity_factor)
     targets = tokens[:, 1:].to(torch.long)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
@@ -378,4 +408,4 @@ def lm_loss(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
         loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
     else:
         loss = torch.mean(nll)
-    return loss, {"loss": loss}
+    return loss + cfg.router_aux_coef * aux, {"loss": loss, "aux": aux}

@@ -78,8 +78,10 @@ def init_state(model: Model, seed: int, tcfg: TrainConfig, device: DeviceLike = 
 
 def make_train_step(model: Model, tcfg: TrainConfig
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Returns train_step(state, batch) -> (state, {"loss", "grad_norm"}); the
-    state is updated in place."""
+    """Returns train_step(state, batch) -> (state, metrics); the state is
+    updated in place. The metrics are {"loss", "grad_norm"} and, without
+    microbatches, the model's own (the CE as "loss", the router's "aux"),
+    as the reference's."""
     opt = _optimizer(model, tcfg)
 
     def train_step(state: TrainState, batch: Batch):
@@ -87,8 +89,9 @@ def make_train_step(model: Model, tcfg: TrainConfig
         names, leaves = list(flat), list(flat.values())
 
         def loss_and_grads(b: Batch):
-            loss, _ = model.loss(state.params, b, remat=tcfg.remat)
-            return loss.detach(), torch.autograd.grad(loss, leaves)
+            loss, metrics = model.loss(state.params, b, remat=tcfg.remat)
+            return (loss.detach(), torch.autograd.grad(loss, leaves),
+                    {k: v.detach() for k, v in metrics.items()})
 
         n_micro = max(tcfg.microbatch, 1)
         if n_micro > 1:
@@ -107,19 +110,19 @@ def make_train_step(model: Model, tcfg: TrainConfig
                                     min=1.0)
                 else:
                     w = torch.tensor(float(mb), device=batch["tokens"].device)
-                loss, g = loss_and_grads(sub)
+                loss, g, _ = loss_and_grads(sub)
                 g_acc = [a + w * gk for a, gk in zip(g_acc, g)]
                 l_acc = l_acc + w * loss
                 w_acc = w_acc + w
             grads = {k: a / w_acc for k, a in zip(names, g_acc)}
-            loss = l_acc / w_acc
+            loss, metrics = l_acc / w_acc, {}
         else:
-            loss, g = loss_and_grads(batch)
+            loss, g, metrics = loss_and_grads(batch)
             grads = dict(zip(names, g))
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         opt.update(grads, state.opt_state, flat, state.step)
         state.step += 1
-        return state, {"loss": loss, "grad_norm": gnorm}
+        return state, {"loss": loss, "grad_norm": gnorm, **metrics}
 
     return train_step
 
@@ -138,7 +141,9 @@ def train_loop(model: Model, tcfg: TrainConfig, data_iter: Iterator[Batch], n_st
         state, metrics = step_fn(state, next(data_iter))
         state.history.append(metrics)
         if verbose and (i % log_every == 0 or i == n_steps - 1):
-            print(f"step {i:5d}  loss {float(metrics['loss']):.4f}  "
+            aux = (f"aux {float(metrics['aux']):.4f}  "
+                   if model.cfg.family == "moe" and "aux" in metrics else "")
+            print(f"step {i:5d}  loss {float(metrics['loss']):.4f}  {aux}"
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)")
         if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:

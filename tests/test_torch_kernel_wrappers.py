@@ -166,3 +166,29 @@ def test_prod_head_wrapper_refuses_shapes(phi, hidden, K):
         ph.prod_head_cuda(torch.zeros(phi), torch.zeros(d, hidden), torch.zeros(hidden),
                           torch.zeros(hidden, K), torch.zeros(K), torch.zeros(K + 1),
                           torch.tensor([0.5]))
+
+
+@pytest.mark.parametrize("name,pattern", [
+    ("flash_attention", r"launch_sm90<(\d+)>\(FLASH_ARGS\)"),
+    ("flash_attention", r"simt::launch<(\d+)>\(FLASH_ARGS\)"),
+    ("decode_attention", r"by_group<T, (\d+)>\(gt"),
+    ("decode_attention", r"hd == (\d+)"),
+], ids=["flash-bf16", "flash-fp32", "decode-launch", "decode-valid"])
+def test_head_dims_are_the_sources_instantiations(name, pattern):
+    """The widths a wrapper lets through are the ones its source
+    instantiates, for each dtype: Kimi-K2's 112 and Gemma3's 168 among them."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    widths = tuple(sorted({int(w) for w in re.findall(pattern, src)}))
+    assert widths == WRAPPERS[name].HEAD_DIMS == (32, 64, 112, 128, 168)
+
+
+@pytest.mark.parametrize("hd", [112, 96, 48])
+def test_attention_wrappers_take_hd112_only_among_these(hd):
+    """hd=112 passes the width check and reaches the device check (these
+    tensors lie on the CPU); 96 and 48 are refused by width."""
+    msg = "CUDA" if hd == 112 else "kernel takes"
+    kv = torch.zeros(2, 10, 2, hd)
+    with pytest.raises(ValueError, match=msg):
+        fa.flash_attention_cuda(torch.zeros(2, 10, 8, hd), kv, kv)
+    with pytest.raises(ValueError, match=msg):
+        da.decode_attention_cuda(torch.zeros(2, 8, hd), kv, kv, torch.ones(2, dtype=torch.int32))

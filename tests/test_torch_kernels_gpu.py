@@ -44,7 +44,7 @@ def _qkv(seed, qshape, kvshape, dtype, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("hd", [32, 64, 128, 168])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 168])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17), (False, 0)])
 def test_flash_attention_kernel_vs_plain(dtype, hd, causal, window):
     dev = cuda_device()
@@ -108,6 +108,15 @@ FLASH_BF16_CASES = {
     "gemma3-non-causal": (2, 300, 4, 2, 168, False, 0, [300, 65]),
     "gemma3-G1": (2, 256, 4, 4, 168, True, 0, [256, 129]),
     "gemma3-G8": (2, 256, 8, 1, 168, True, 0, [256, 129]),
+    # Kimi-K2's heads (64 on 8 KV heads, hd=112: tiles of 128 columns, the
+    # last 16 read as zeros) and Qwen3-MoE's (64 on 4, hd=64: G=16)
+    "kimi-serve": (2, 512, 64, 8, 112, True, 0, [512, 1]),
+    "kimi-serve-len37-65": (2, 512, 64, 8, 112, True, 0, [37, 65]),
+    "kimi-S77": (2, 77, 8, 1, 112, True, 0, None),
+    "kimi-window17-empty-rows": (3, 300, 8, 1, 112, True, 17, [300, 5, 100]),
+    "kimi-non-causal": (2, 300, 8, 2, 112, False, 0, [300, 65]),
+    "qwen3moe-serve-G16": (2, 512, 64, 4, 64, True, 0, [512, 1]),
+    "qwen3moe-len37-65": (2, 512, 64, 4, 64, True, 0, [37, 65]),
 }
 
 
@@ -144,6 +153,26 @@ def test_flash_attention_hd168(dtype, window, lens):
                                                 kv_lengths=lens))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("window,lens", [(0, [300, 1]), (17, [300, 5]), (1024, [300, 200])],
+                         ids=["causal", "window17", "window1024"])
+def test_flash_attention_hd112(dtype, window, lens):
+    """Kimi-K2's head width in both kernels (wgmma in bf16 on 128-column
+    tiles, SIMT in fp32 with 7 strides of 16): ragged lengths, rows with no
+    valid key, a window longer than the sequence; a second call gives the
+    same bits."""
+    dev = cuda_device()
+    B, S, H, KV, hd = 2, 300, 16, 2, 112
+    q, k, v = _qkv(18, (B, S, H, hd), (B, S, KV, hd), dtype, dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = ops.flash_attention(q, k, v, causal=True, window=window, kv_lengths=lens)
+    close(got, ref.flash_attention_ref(q, k, v, causal=True, window=window, kv_lengths=lens),
+          dtype)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True, window=window,
+                                                kv_lengths=lens))
+
+
 def _check_decode(q, k, v, lens, dtype):
     """The kernel against its plain version, and a second call bit-identical
     (the splits are combined in a fixed order)."""
@@ -165,7 +194,7 @@ def test_decode_attention_kernel_vs_plain(dtype, B, Sc, H, KV, hd):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("hd", [32, 64, 128, 168])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 168])
 @pytest.mark.parametrize("G", [1, 4, 8, 16])
 def test_decode_attention_group_sizes(dtype, hd, G):
     """Query heads per KV head 1 (one head a block), 4 and 8 (one head tile)
@@ -200,6 +229,11 @@ DECODE_CASES = {
     "gemma3-serve": (8, 576, 32, 16, 168, SERVE_LENS),
     "gemma3-ring": (4, 1024, 32, 16, 168, [1024, 1024, 1024, 577]),
     "gemma3-Sc20": (3, 20, 4, 2, 168, [20, 1, 13]),
+    # Kimi-K2 (G=8 in 2 head tiles of 4, hd=112) and Qwen3-MoE (G=16 in 2
+    # tiles of 8, hd=64) at the serve shape; Kimi below one pass of keys
+    "kimi-serve": (8, 576, 64, 8, 112, SERVE_LENS),
+    "kimi-Sc20": (3, 20, 8, 1, 112, [20, 1, 13]),
+    "qwen3moe-serve-G16": (8, 576, 64, 4, 64, SERVE_LENS),
 }
 
 
@@ -255,6 +289,8 @@ PLAN_CASES = [
     (64, 1, 32, 8, 128, BF16), (1, 1_000_000, 1, 1, 32, BF16),
     (8, 576, 32, 16, 168, BF16), (4, 1024, 32, 16, 168, BF16),   # Gemma3's (hd=168)
     (3, 301, 32, 2, 168, F32), (1, 8192, 8, 1, 168, BF16),
+    (8, 576, 64, 8, 112, BF16), (3, 301, 16, 2, 112, F32),      # Kimi-K2's (hd=112)
+    (8, 576, 64, 4, 64, BF16),                                   # Qwen3-MoE's (G=16)
 ]
 
 
@@ -262,7 +298,8 @@ PLAN_CASES = [
 @pytest.mark.parametrize("B,Sc,H,KV,hd,dtype", PLAN_CASES)
 def test_decode_attention_plan_covers_the_cache(B, Sc, H, KV, hd, dtype):
     """The library's split, from the shapes and this card's SM count alone:
-    a head tile of G rounded up to a power of two (at most 8; 2 at hd=168),
+    a head tile of G rounded up to a power of two (at most 8; 4 at hd=112,
+    2 at hd=168),
     splits that cover every key once (at most 128), and a block on every SM
     unless the splits are already one pass of keys or the 128-split cap
     makes them longer."""
@@ -270,11 +307,11 @@ def test_decode_attention_plan_covers_the_cache(B, Sc, H, KV, hd, dtype):
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     G = H // KV
     gt, n, chunk = da.plan(dev, B, Sc, H, KV, hd, TDT[dtype])
-    assert gt == min(2 if hd == 168 else 8, 1 << (G - 1).bit_length())
+    assert gt == min({112: 4, 168: 2}.get(hd, 8), 1 << (G - 1).bit_length())
     assert 1 <= n <= 128 and (n - 1) * chunk < Sc <= n * chunk
     # key rows a block's pass: hd/8 lanes a row, 4 (bf16) or 2 (fp32) rows a
-    # thread; at hd=168 8 lanes a row and 2 or 1 rows a thread
-    step = (16 * (2 if dtype == BF16 else 1) if hd == 168
+    # thread; at hd=112 and 168 8 lanes a row and 2 or 1 rows a thread
+    step = (16 * (2 if dtype == BF16 else 1) if hd in (112, 168)
             else 128 // (hd // 8) * (4 if dtype == BF16 else 2))
     assert chunk % step == 0
     assert n * B * KV * -(-G // gt) >= n_sms or chunk == step or -(-Sc // 128) > step
@@ -340,6 +377,31 @@ def test_decode_attention_hd168_plans_round_correctly(plan):
     assert torch.equal(got, da.decode_attention_cuda(q, k, v, lens, with_plan=plan))
     with pytest.raises(RuntimeError):
         da.decode_attention_cuda(q, k, v, lens, with_plan=(4, 6, 96))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [(4, 1, 576), (4, 3, 192), (4, 6, 96), (4, 18, 32),
+                                  (2, 6, 96), (1, 6, 96)])
+def test_decode_attention_hd112_plans_round_correctly(plan):
+    """Kimi-K2's decode shape (G=8, hd=112) under other splits than the
+    library's, each within one bf16 step of the exact attention (as above),
+    and a second call bit-identical; a head tile of 8, which hd=112 does not
+    instantiate, is refused."""
+    dev = cuda_device()
+    B, Sc, H, KV, hd = 8, 576, 64, 8, 112
+    q, k, v = _qkv(19, (B, H, hd), (B, Sc, KV, hd), BF16, dev)
+    lens = torch.tensor(SERVE_LENS, dtype=torch.int32, device=dev)
+    got = da.decode_attention_cuda(q, k, v, lens, with_plan=plan)
+    qg = q.double().reshape(B, KV, 8, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.double()) / hd ** 0.5
+    s = s.masked_fill(torch.arange(Sc, device=dev)[None, None, None]
+                      >= lens[:, None, None, None], float("-inf"))
+    exact = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, -1), v.double()).reshape(B, H, hd)
+    step = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((got.double() - exact).abs() <= step + 2e-6).all())
+    assert torch.equal(got, da.decode_attention_cuda(q, k, v, lens, with_plan=plan))
+    with pytest.raises(RuntimeError):
+        da.decode_attention_cuda(q, k, v, lens, with_plan=(8, 6, 96))
 
 
 def _head_args(B, d, hid, K, dev):
@@ -643,3 +705,68 @@ def test_blocked_attention_grads_on_the_card_match_the_cpu(S):
         res.append([o.detach().cpu()] + [g.cpu() for g in grads])
     for a, b in zip(res[1], res[0]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [1.25, 0.3])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_moe_apply_on_the_card_matches_the_cpu(dtype, cf):
+    """models/moe.py on the card (16 experts top-4 of width 256, a shared
+    expert, d=512, 8 x 64 positions, the last rows right-padded) against
+    the same on the CPU. The experts, routed on the CPU and given the same
+    ids and combine weights on both devices: the dispatch equal, the output
+    within 1e-4 (fp32, no TF32) or 2e-2 (bf16) of its scale. In fp32 the
+    whole ``moe_apply``, each device routing from its own fp32 logits, agrees
+    at the same tolerance and its aux at 1e-6 (in bf16 a token's k-th and
+    (k+1)-th logits can fall within the two devices' fp32 rounding of each
+    other, and then it routes elsewhere). A second call on the card gives the
+    same bits (the combine sums each token's rows in a fixed order, no
+    atomics)."""
+    from repro_torch.common.config import ModelConfig
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import moe
+
+    dev = cuda_device()
+    cfg = ModelConfig(name="moe-gpu", family="moe", n_layers=1, d_model=512, n_heads=8,
+                      n_kv_heads=2, d_ff=256, vocab_size=64, n_experts=16,
+                      n_experts_per_token=4, n_shared_experts=1, moe_d_ff=256, dtype=dtype)
+    rng = np.random.default_rng(20)
+
+    def draw(s):
+        if isinstance(s, dict):
+            return {k: draw(v) for k, v in s.items()}
+        scale = 20 * s.scale if s.scale else 1 / np.sqrt(s.shape[-2])
+        return torch.from_numpy((rng.standard_normal(s.shape) * scale).astype(np.float32))
+
+    p_cpu = tree_map(lambda t: t.to(TDT[dtype]), draw(moe.moe_spec(cfg)))
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 512)).astype(np.float32))
+    x[6:, 40:] = x[6, 40]                                  # pads: one vector
+    x = x.to(TDT[dtype])
+    xf = x.reshape(-1, 512)
+    ids, comb, _ = moe._router(xf.float() @ p_cpu["router"].float(), 4)
+    cap = moe._capacity(512, 4, 16, cf)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for a, b in zip(moe._dispatch(ids.to(dev), comb.to(dev), 16, cap),
+                        moe._dispatch(ids, comb, 16, cap)):
+            assert torch.equal(a.cpu(), b)
+        experts = lambda p, where: moe._expert_ffn_local(
+            xf.to(where), ids.to(where), comb.to(where), p["w_gate"], p["w_up"], p["w_down"],
+            cap)
+        want, got = experts(p_cpu, "cpu"), experts(p_dev, dev)
+        assert torch.equal(got, experts(p_dev, dev))
+        tol = 1e-4 if dtype == F32 else 2e-2
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol * scale)
+        out, aux = moe.moe_apply(p_dev, x.to(dev), cfg, capacity_factor=cf)
+        again = moe.moe_apply(p_dev, x.to(dev), cfg, capacity_factor=cf)
+        assert torch.equal(out, again[0]) and torch.equal(aux, again[1])
+        if dtype == F32:
+            out_cpu, aux_cpu = moe.moe_apply(p_cpu, x, cfg, capacity_factor=cf)
+            scale = float(out_cpu.abs().max())
+            torch.testing.assert_close(out.cpu(), out_cpu, rtol=tol, atol=tol * scale)
+            torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-6, atol=1e-6)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -128,7 +128,7 @@ def test_decode_steps_teacher_forced(models):
         jlen, tlen = jlen + 1, tlen + 1
 
 
-@pytest.mark.parametrize("override", [dict(family="moe"), dict(use_mrope=True),
+@pytest.mark.parametrize("override", [dict(family="encdec"), dict(use_mrope=True),
                                       dict(act="gelu")])
 def test_unported_model_features_raise(override):
     cfg = get_config("tiny-lm").with_overrides(**override)
