@@ -13,7 +13,9 @@ script exits non-zero without its result line:
 3. kernels: each CUDA kernel against its plain PyTorch version at the serving
    shapes (and the fp32 flash and decode at the online phase's tiny-lm
    shapes; flash, decode and the head also at the dense configs' shapes:
-   GQA groups 7 and 48, MiniCPM-2B's 36-head MHA, d = 2304-7168), with the
+   GQA groups 7 and 48, MiniCPM-2B's 36-head MHA, d = 2304-7168; the head at
+   the bins ablation's grids, d=64, B=400, K = 16 and 128, linear and log
+   edges), with the
    stated tolerance, timed beside the plain version, one
    PyTorch library call as a yardstick where one computes the same function
    (timed only, never used by the port) and the least time the card could
@@ -83,10 +85,23 @@ script exits non-zero without its result line:
 5. table1: the paper's Table 1, fast profile (8 Track-A settings x 7
    methods), every head trained on the card; its claims must equal the
    reference's, and prod_head is the one kernel launched (32 times);
+   ablations: the paper's ablations at the fast profile, each with the
+   counts set to 0 just before it and read just after (prod_head the only
+   kernel): the bins ablation (linear and log edges x K = 16, 64, 128 on
+   qwen/chat and qwen/math; 12 launches), Figure 2 (4 scenarios x repeat
+   numbers 1-16, 2 trials; 72 launches) and Tables 2-3 on qwen/math and
+   qwen/chat at one trial (112 fits; 8 launches), validated against the
+   table1 phase's rows; each validate's booleans must equal the reference's
+   (kept as constants), every MAE printed beside the reference's; then the
+   head kernel held against its plain version on the bins ablation's 12
+   trained heads;
 6. sim: ``--mode sim`` with the reference's defaults (a ProD-D head, 200
    requests through ``SimEngine`` under four policies): every request
    completes, prod_head is launched once per policy run, and ProD-driven SJF
-   beats both FCFS rows on mean latency;
+   beats both FCFS rows on mean latency; single: the serving benchmark's
+   single-replica track (``bench_serving.run``: a head trained on qwen/chat,
+   250 requests under six policies; 6 launches), its booleans equal to the
+   reference's;
 7. cluster: ``launch/bench_serving.py``'s predictor, adaptation and refine
    tables at 8,000 bursty mixed-scenario requests, seed 0, on 4 replicas:
    every dispatch window of every ``PredictorService`` scored on the card
@@ -382,6 +397,54 @@ def kernel_checks(torch, ref, kernels):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
                      "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+
+    # --- prod_head at the bins ablation's grids (launch/bench_bins_ablation.py):
+    # the Track-A width d=64, hidden 512, on the 400 test prompts of qwen/chat
+    # at the fast profile, K = 16 and 128 bins (128 is the kernel's largest
+    # K) with linear and log edges up to the scenario's bin_max, weights at
+    # the head's init scales. Same tolerance; a quantile that crosses a wide
+    # log bin holding little mass is held in the CDF (hold_quantiles).
+    from repro_torch.data import make_scenario
+    from repro_torch.launch.table1 import scenario_pcfg
+
+    data = make_scenario("qwen", "chat", n_train=800, n_test=400, seed=0)
+    phi = torch.from_numpy(data.phi_test["last"].astype(np.float32)).to(dev)
+    B, d, hidden = phi.shape[0], phi.shape[1], 512
+    for K in (16, 128):
+        for spacing in ("linear", "log"):
+            edges = make_edges(K, scenario_pcfg(data, n_bins=K).bin_max, spacing, device=dev)
+            w1 = torch.randn(d, hidden, generator=g, device=dev) / d ** 0.5
+            b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
+            w2 = torch.randn(hidden, K, generator=g, device=dev) / hidden ** 0.5
+            b2 = torch.zeros(K, device=dev)
+            args = (phi, w1, b1, w2, b2, edges)
+            probs, quants = kernels["prod_head"](*args, qs)
+            again = kernels["prod_head"](*args, qs)
+            p_ref, q_ref = ref.prod_head_ref(*args, qs=qs)
+            torch.cuda.synchronize()
+            label = f"B={B} d={d} K={K} {spacing} edges"
+            check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
+                  f"prod_head probs {label}: max err {max_err(torch, probs, p_ref)}")
+            hold_quantiles(torch, label, quants, q_ref, qs, head_fp64(torch, *args[:5])[1], edges)
+            check(torch.equal(probs, again[0]) and torch.equal(quants, again[1]),
+                  f"prod_head {label}: two calls differ")
+            call = lambda: kernels["prod_head"](*args, qs)
+            chain = lambda: torch.softmax(
+                torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1)
+            ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
+            plain_ms = time_ms(torch, lambda: ref.prod_head_ref(*args, qs=qs))
+            lib_ms, lib_dev_ms = time_ms(torch, chain), device_time_ms(torch, chain)
+            nbytes = 4 * (B * d + d * hidden + hidden + hidden * K + K + K + 1 + 3
+                          + B * K + B * 3)
+            flops = 2 * B * d * hidden + 2 * B * hidden * K
+            b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+            rows.append({"name": "prod_head",
+                         "shape": f"B={B} d={d} hidden={hidden} K={K} Q=3 fp32, {spacing} edges",
+                         "max_abs_err": max(max_err(torch, probs, p_ref),
+                                            max_err(torch, quants, q_ref)),
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
+                         "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
     # --- flash attention at the prefill shapes of the served models:
     # Llama-3-8B (H=32, KV=8, hd=128), Zamba2-1.2B's shared block (H=32,
@@ -1261,6 +1324,26 @@ def head_checks(torch, prod_head, pred, phi, sweep: bool) -> None:
               f"within rtol 1e-5/atol 1e-6 of plain: {ok}")
 
 
+def _counted(torch, counters, what, fn, expect):
+    """Run ``fn`` with the launch counts set to 0 just before and read just
+    after: prod_head must have launched ``expect`` times and no other kernel
+    at all. Returns (fn's result, launches, wall seconds)."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"{what}: {wall:.1f} s wall; launches {json.dumps(launches)}")
+    check(launches["prod_head"] == expect,
+          f"{what}: prod_head launched {launches['prod_head']}, expected {expect}")
+    for k in set(counters) - {"prod_head"}:
+        check(launches[k] == 0, f"{what}: kernel {k} launched off its path")
+    return out, launches, wall
+
+
 # The reference's Table 1, fast profile: `benchmarks/bench_table1.py::run(fast=True,
 # seed=0)` of the JAX package, run with JAX_PLATFORMS=cpu: its claims (every
 # boolean True, ProD-D 4.33% below TRAIL-last) and per-backbone average test MAE
@@ -1281,14 +1364,10 @@ def table1_phase(torch, counters):
     printed beside the reference's."""
     from repro_torch.launch import table1
 
-    for c in counters.values():
-        c.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = table1.run(fast=True, seed=0, verbose=True, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    # ProD-M and ProD-D predict train and test phi once each through the head, per setting
+    out, launches, _ = _counted(torch, counters, "table1",
+                                lambda: table1.run(fast=True, seed=0, verbose=True,
+                                                   device="cuda"), 2 * 2 * 8)
     rows = out["rows"]
     check(len(rows) == 7 and all(len(v) == 8 for v in rows.values())
           and all(math.isfinite(x) for v in rows.values() for x in v.values()),
@@ -1302,14 +1381,9 @@ def table1_phase(torch, counters):
     checks = out["checks"]
     print(f"table1: claims {json.dumps(checks)} (reference: {json.dumps(TABLE1_REF_CHECKS)}, "
           f"prod_beats_trail_last_pct {TABLE1_REF_PCT})")
-    print(f"table1: {wall:.1f} s wall; launches {json.dumps(launches)}")
     for k, v in TABLE1_REF_CHECKS.items():
         check(checks[k] == v, f"table1: claim {k} is {checks[k]}, the reference's is {v}")
     check(checks["prod_beats_trail_last_pct"] > 0, "table1: ProD-D does not beat TRAIL-last")
-    # ProD-M and ProD-D predict train and test phi once each through the head, per setting
-    check(launches["prod_head"] == 2 * 2 * 8, f"table1: prod_head launched {launches['prod_head']}")
-    for k in set(counters) - {"prod_head"}:
-        check(launches[k] == 0, f"table1: kernel {k} launched off its path")
 
     # where the phase's time goes: one of its 232 fits (ProD-D on qwen/math,
     # N=700, 400 AdamW steps), profiled (not counted)
@@ -1325,7 +1399,7 @@ def table1_phase(torch, counters):
     device_profile(torch, lambda: train_predictor(0, data.phi_train["last"], tgt, pcfg, edges,
                                                   device="cuda"),
                    "table1: one ProD-D fit (400 AdamW steps)")
-    return launches
+    return launches, rows
 
 
 def sim_phase(torch, counters):
@@ -1335,24 +1409,203 @@ def sim_phase(torch, counters):
     SimEngine policy runs, each annotating its 200 requests through the head."""
     from repro_torch.launch import serve as serve_launcher
 
-    for c in counters.values():
-        c.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rows = serve_launcher.main(["--mode", "sim", "--device", "cuda"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
-    print(f"sim: {wall:.1f} s wall; launches {json.dumps(launches)}")
+    rows, launches, _ = _counted(torch, counters, "sim",
+                                 lambda: serve_launcher.main(["--mode", "sim", "--device", "cuda"]),
+                                 4)
     by = {r["policy"]: r for r in rows}
     check(len(rows) == 4 and all(r["completed"] == 200 for r in rows),
           "sim: every request of every policy completes")
-    check(launches["prod_head"] == 4, f"sim: prod_head launched {launches['prod_head']}")
-    for k in set(counters) - {"prod_head"}:
-        check(launches[k] == 0, f"sim: kernel {k} launched off its path")
     sjf = by["sjf_pred+quantile"]["mean_latency"]
     check(sjf < by["fcfs+max"]["mean_latency"] and sjf < by["fcfs+quantile"]["mean_latency"],
           "sim: sjf_pred+quantile does not beat both fcfs rows on mean latency")
+    return launches
+
+
+# The reference's ablations of the paper at the fast profile, seed 0: the JAX
+# package's benchmarks/bench_{bins_ablation,fig2,table23}.py, run on the CPU
+# with JAX_PLATFORMS=cpu from the repository root with PYTHONPATH=src:.:
+#   bench_bins_ablation.run(fast=True, seed=0), bench_fig2.run(fast=True, seed=0),
+#   and bench_table23.run(fast=True, seed=0, n_trials=1) with all_settings cut
+#   to qwen/math and qwen/chat, validated against bench_table1.run's rows.
+# Their validate booleans, and beside them the test MAEs (tokens;
+# platform-independent numbers) printed next to the port's.
+ABLATION_REF_CHECKS = {
+    "bins": {"qwen/chat_log_grid_robust": True, "qwen/math_log_grid_robust": True},
+    "fig2": {"qwen/math_repeat_beats_full_coverage": True,
+             "qwen/longseq_repeat_beats_full_coverage": True,
+             "qwen/chat_repeat_beats_full_coverage": True,
+             "llama/longseq_repeat_beats_full_coverage": True},
+    "table23": {"prod_m_best_in_ablation": True, "single_eval_noisier_than_median_eval": True},
+}
+ABLATION_REF_NUMBERS = {
+    "bins": {"qwen/chat_log_vs_linear_pct": 1.9, "qwen/math_log_vs_linear_pct": 1.4},
+    "table23": {"mean_relative_degradation_pct": -0.2026, "max_relative_degradation_pct": -0.0118},
+}
+BINS_REF_MAE = {("qwen", "chat"): {("linear", 16): 273.07, ("linear", 64): 156.57,
+                                   ("linear", 128): 152.19, ("log", 16): 150.66,
+                                   ("log", 64): 149.53, ("log", 128): 149.31},
+                ("qwen", "math"): {("linear", 16): 37.84, ("linear", 64): 36.98,
+                                   ("linear", 128): 37.40, ("log", 16): 37.76,
+                                   ("log", 64): 36.58, ("log", 128): 36.47}}
+# Figure 2: each curve's mean MAE over the 2 trials, by repeat number k
+FIG2_REF_MAE = {
+    ("qwen", "math"): {"prod_m": {1: 40.61, 2: 40.74, 4: 51.89, 8: 56.66, 16: 72.36},
+                       "prod_d": {2: 40.70, 4: 44.62, 8: 48.11, 16: 56.79},
+                       "trail_last_full": {1: 41.73}},
+    ("qwen", "longseq"): {"prod_m": {1: 98.82, 2: 101.66, 4: 118.81, 8: 142.95, 16: 183.18},
+                          "prod_d": {2: 99.30, 4: 114.80, 8: 117.70, 16: 148.92},
+                          "trail_last_full": {1: 100.41}},
+    ("qwen", "chat"): {"prod_m": {1: 163.81, 2: 167.15, 4: 208.85, 8: 212.31, 16: 231.01},
+                       "prod_d": {2: 160.28, 4: 182.58, 8: 198.37, 16: 215.29},
+                       "trail_last_full": {1: 166.85}},
+    ("llama", "longseq"): {"prod_m": {1: 82.76, 2: 84.74, 4: 97.10, 8: 111.32, 16: 130.68},
+                           "prod_d": {2: 81.11, 4: 89.83, 8: 99.15, 16: 107.01},
+                           "trail_last_full": {1: 86.16}},
+}
+# Tables 2-3 at one trial: (eval target, method) -> (qwen/math, qwen/chat)
+T23_REF_MAE = {("single", "s3"): (104.31, 319.22), ("single", "trail_mean"): (76.53, 262.88),
+               ("single", "trail_last"): (62.09, 155.82), ("single", "egtp"): (100.30, 403.82),
+               ("single", "prod_m"): (60.63, 149.18), ("median", "s3"): (92.08, 312.25),
+               ("median", "trail_mean"): (60.56, 261.00), ("median", "trail_last"): (41.81, 144.41),
+               ("median", "egtp"): (92.16, 408.26), ("median", "prod_m"): (41.84, 135.88)}
+T23_SETTINGS = (("qwen", "math"), ("qwen", "chat"))
+
+
+def _same_booleans(what, checks, want):
+    print(f"{what}: checks {json.dumps(checks)}")
+    for k, v in want.items():
+        check(checks[k] == v, f"{what}: {k} is {checks[k]}, the reference's is {v}")
+
+
+def ablations_phase(torch, counters, t1_rows):
+    """The paper's ablations on the card at the fast profile: the bins
+    ablation (12 fits, one median through the head each), Figure 2 (4
+    scenarios x (10 ProD-M + 8 ProD-D) medians through the head; TRAIL-last's
+    mean decode is plain) and Tables 2-3 on qwen/math and qwen/chat at one
+    trial (112 fits; ProD-M predicts train and test phi through the head, 8
+    calls), validated against ``t1_rows``, Table 1's rows from the table1
+    phase. Each part's validate booleans must equal the reference's. Then the
+    kernel is held against its plain version on the bins ablation's 12
+    trained heads and test phi (K = 16, 64, 128, linear and log edges)."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import bench_bins_ablation, bench_fig2, bench_table23
+    from repro_torch.launch.table1 import all_settings
+
+    total = {k: 0 for k in counters}
+
+    # the bins ablation, its trained heads kept for the kernel check below
+    heads = []
+    fit = bench_bins_ablation.train_predictor
+
+    def keeping(seed, phi, tgt, pcfg, edges, device=None):
+        heads.append((phi.shape, fit(seed, phi, tgt, pcfg, edges, device=device)))
+        return heads[-1][1]
+
+    bench_bins_ablation.train_predictor = keeping
+    try:
+        out, launches, _ = _counted(torch, counters, "ablations: bins",
+                                    lambda: bench_bins_ablation.run(fast=True, seed=0,
+                                                                    device="cuda"), 12)
+    finally:
+        bench_bins_ablation.train_predictor = fit
+    for k in total:
+        total[k] += launches[k]
+    for setting, res in out.items():
+        print(f"  {'/'.join(setting)}: " + "  ".join(
+            f"{sp} K={K} {v:.2f} [{BINS_REF_MAE[setting][(sp, K)]:.2f}]"
+            for (sp, K), v in sorted(res.items())))
+    checks = bench_bins_ablation.validate(out)
+    print(f"ablations: bins reference numbers {json.dumps(ABLATION_REF_NUMBERS['bins'])}")
+    _same_booleans("ablations: bins", checks, ABLATION_REF_CHECKS["bins"])
+
+    # Figure 2
+    out, launches, _ = _counted(torch, counters, "ablations: fig2",
+                                lambda: bench_fig2.run(fast=True, seed=0, device="cuda"), 72)
+    for k in total:
+        total[k] += launches[k]
+    for setting, curves in out.items():
+        for curve, points in curves.items():
+            print(f"  {'/'.join(setting)} {curve:15s} by k: " + "  ".join(
+                f"{k}: {v[0]:.2f} [{FIG2_REF_MAE[setting][curve][k]:.2f}]"
+                for k, v in points.items()))
+    _same_booleans("ablations: fig2", bench_fig2.validate(out), ABLATION_REF_CHECKS["fig2"])
+
+    # Tables 2-3 on two settings, one trial
+    def table23():
+        t23 = {"single": {}, "median": {}}
+        for model, scen, data, epochs in all_settings(fast=True, seed=0):
+            if (model, scen) in T23_SETTINGS:
+                bench_table23.run_setting(t23, model, scen, data, epochs, n_trials=1,
+                                          device="cuda")
+        return t23
+
+    t23, launches, _ = _counted(torch, counters, "ablations: table23 (qwen/math, qwen/chat)",
+                                table23, 2 * 2 * 2)
+    for k in total:
+        total[k] += launches[k]
+    for (ev, m), refs in T23_REF_MAE.items():
+        print(f"  {ev:6s} eval {m:12s} " + "  ".join(
+            f"{'/'.join(s)} {t23[ev][m][s][0]:8.2f} [{r:.2f}]" for s, r in zip(T23_SETTINGS, refs)))
+    checks = bench_table23.validate(t23, t1_rows)
+    print(f"ablations: table23 reference numbers {json.dumps(ABLATION_REF_NUMBERS['table23'])}")
+    _same_booleans("ablations: table23", checks, ABLATION_REF_CHECKS["table23"])
+
+    # the kernel on the trained heads of the bins ablation (not counted)
+    from repro_torch.data import make_scenario
+
+    levels = torch.tensor([0.5], device="cuda")
+    worst = 0.0
+    for i, (_, pred) in enumerate(heads):
+        scen = ("qwen", "chat") if i < 6 else ("qwen", "math")
+        data = make_scenario(*scen, n_train=800, n_test=400, seed=0)
+        phi = torch.from_numpy(data.phi_test["last"].astype("float32")).cuda()
+        p = pred.params
+        args = (phi, p["w1"], p["b1"], p["w2"], p["b2"], pred.edges)
+        probs, med = counters["prod_head"](*args, levels)
+        again = counters["prod_head"](*args, levels)
+        p_ref, m_ref = ref.prod_head_ref(*args, qs=levels)
+        torch.cuda.synchronize()
+        K = pred.edges.shape[0] - 1
+        label = f"{'/'.join(scen)} K={K} {pred.pcfg.bin_spacing} trained"
+        check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
+              f"prod_head probs {label}: max err {max_err(torch, probs, p_ref)}")
+        hold_quantiles(torch, label, med, m_ref, levels, head_fp64(torch, *args[:5])[1],
+                       pred.edges)
+        check(torch.equal(probs, again[0]) and torch.equal(med, again[1]),
+              f"prod_head {label}: two calls differ")
+        worst = max(worst, max_err(torch, probs, p_ref))
+    print(f"ablations: the kernel on the {len(heads)} trained heads of the bins ablation, "
+          f"probs within {worst:.3g} of the plain version, second calls bit-identical")
+    return total
+
+
+# The reference's single-replica track (benchmarks/bench_serving.py::run at its
+# defaults: qwen/chat, 250 requests, seed 0), run on the CPU with
+# JAX_PLATFORMS=cpu: its validate booleans, and its numbers beside the port's.
+SINGLE_REF_CHECKS = {"prod_beats_naive_latency": True, "prod_reduces_waste": True,
+                     "oracle_is_bound": True, "srtf_not_worse_than_sjf": True}
+SINGLE_REF_NUMBERS = {"prod_latency_gain_pct": 76.14, "prod_throughput_gain_pct": 34.74,
+                      "srtf_preemptions": 15}
+
+
+def single_phase(torch, counters):
+    """The serving benchmark's single-replica track on the card: a ProD-D
+    head trained there on qwen/chat, then six ``SimEngine`` policy runs over
+    250 requests, each predicting its medians in one head call (6 launches,
+    as the port's CPU path counts them: tests/test_torch_bench_serving_tables.py).
+    Its validate booleans must equal the reference's."""
+    from repro_torch.launch import bench_serving as bench
+
+    (rows, checks), launches, _ = _counted(
+        torch, counters, "single",
+        lambda: bench.run_table("single", seed=0, device="cuda"), len(bench.POLICIES))
+    for r in rows:
+        print(f"  {r['policy']:24s} mean latency {r['mean_latency']:.1f} p90 "
+              f"{r['p90_latency']:.1f} throughput {r['throughput']:.3f} waste "
+              f"{r['kv_waste_ratio']:.3f}")
+    check(all(r["completed"] == 250 for r in rows), "single: every request completes")
+    print(f"single: reference numbers {json.dumps(SINGLE_REF_NUMBERS)}")
+    _same_booleans("single", checks, SINGLE_REF_CHECKS)
     return launches
 
 
@@ -2386,8 +2639,10 @@ def main() -> int:
     by_phase["gemma3 long"] = gemma3_long_phase(torch, ref, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    by_phase["table1"] = table1_phase(torch, kernels)
+    by_phase["table1"], t1_rows = table1_phase(torch, kernels)
+    by_phase["ablations"] = ablations_phase(torch, kernels, t1_rows)
     by_phase["sim"] = sim_phase(torch, kernels)
+    by_phase["single"] = single_phase(torch, kernels)
     by_phase["cluster"] = cluster_phase(torch, kernels)
     by_phase["train"] = train_phase(torch, kernels)
     torch.cuda.empty_cache()

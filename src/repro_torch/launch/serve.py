@@ -18,8 +18,9 @@
                weights, or the weights of a ``launch/train.py`` checkpoint
                (``--ckpt``; its whole train state, AdamW moments included,
                is checked against the model's before the params are taken).
-               A model whose weights (``param_count()`` in its dtype) pass
-               the card's memory is refused before anything is allocated:
+               A model whose init (its leaves in its dtype, plus the fp32
+               draw of the largest) passes the card's memory is refused
+               before anything is allocated:
                Qwen3-MoE-235B-A22B (463 GB of bf16) and Kimi-K2 (2.09 TB)
                at full depth; ``chip_smoke.py`` serves them cut in depth.
 
@@ -35,13 +36,15 @@
 from __future__ import annotations
 
 import argparse
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.common.config import ModelConfig, PredictorConfig, TrainConfig
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.common.pytree import tree_items
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core import bins as bins_mod
 from repro_torch.core import targets as targets_mod
@@ -134,16 +137,30 @@ def run_sim(args):
     return rows
 
 
+def init_bytes(cfg: ModelConfig) -> Tuple[int, int]:
+    """What ``Model.init`` allocates, counted from the model's spec without
+    allocating: (the bytes of every leaf in the config's dtype, the bytes of
+    the largest leaf drawn in fp32). ``init_tree`` draws each random leaf in
+    fp32 and then casts it, so that draw is live beside the leaves made before
+    it; in an fp32 model the cast is the draw itself."""
+    itemsize = torch_dtype(cfg.dtype).itemsize
+    specs = [spec for _, spec in tree_items(build_model(cfg).spec())]
+    leaves = itemsize * sum(math.prod(s.shape) for s in specs)
+    drawn = [4 * math.prod(s.shape) for s in specs if s.init not in ("zeros", "ones")]
+    return leaves, (max(drawn, default=0) if itemsize != 4 else 0)
+
+
 def refuse_if_too_large(cfg: ModelConfig, total_memory: int) -> None:
-    """Exit, naming the sizes, when the weights alone (``param_count()`` in
-    the config's dtype) pass the card's ``total_memory`` bytes."""
-    need = cfg.param_count() * torch_dtype(cfg.dtype).itemsize
-    if need > total_memory:
+    """Exit, naming the sizes, when what the init allocates (``init_bytes``:
+    the leaves in the config's dtype plus the fp32 draw of the largest) passes
+    the card's ``total_memory`` bytes."""
+    leaves, draw = init_bytes(cfg)
+    if leaves + draw > total_memory:
         raise SystemExit(
-            f"{cfg.name}: {need / 1e9:.1f} GB of {cfg.dtype} weights ({cfg.n_layers} layers, "
-            f"param_count() {cfg.param_count() / 1e9:.2f} B) do not fit the card's "
-            f"{total_memory / 1e9:.1f} GB; not allocating. Serve it cut in depth "
-            f"(get_config(...).with_overrides(n_layers=...)), as chip_smoke.py does.")
+            f"{cfg.name}: {leaves / 1e9:.1f} GB of {cfg.dtype} leaves plus the "
+            f"{draw / 1e9:.1f} GB fp32 draw of the largest ({cfg.n_layers} layers) do not "
+            f"fit the card's {total_memory / 1e9:.1f} GB; not allocating. Serve it cut in "
+            f"depth (get_config(...).with_overrides(n_layers=...)), as chip_smoke.py does.")
 
 
 def run_real(args) -> Dict[str, object]:

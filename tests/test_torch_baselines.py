@@ -22,19 +22,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import jax, np_tree  # noqa: E402
+from _torch_parity import (carry_reference_inits, cut_sweeps_to_two_points,  # noqa: E402
+                           jax, record_reference_fits)
 
 from benchmarks import bench_table1  # noqa: E402
 from repro.common.config import PredictorConfig as JPredictorConfig  # noqa: E402
 from repro.core import baselines as jbaselines  # noqa: E402
-from repro.core import predictor as jpredictor  # noqa: E402
 from repro.data import make_scenario as jmake_scenario  # noqa: E402
 from repro_torch.common.config import PredictorConfig  # noqa: E402
 from repro_torch.core import baselines  # noqa: E402
-from repro_torch.core import predictor as tpredictor  # noqa: E402
 from repro_torch.data import make_scenario  # noqa: E402
 from repro_torch.launch import table1  # noqa: E402
-from repro_torch.models.convert import head_from_jax  # noqa: E402
 
 MAE_RTOL, PRED_RTOL, ATOL = 1e-3, 1e-2, 2e-3
 TRAINED = ("s3", "trail_mean", "trail_last", "egtp", "prod_m", "prod_d")
@@ -102,10 +100,7 @@ def test_fit_seeds_are_fixed_and_distinct():
 def two_point_grid(monkeypatch):
     """The sweep cut to two points (num_bins 7 and 13 at the largest
     bin_max) in both packages."""
-    for mod in (jbaselines, baselines):
-        full = mod._bin_max_grid
-        monkeypatch.setattr(mod, "S3_NUM_BINS_GRID", (7, 13))
-        monkeypatch.setattr(mod, "_bin_max_grid", lambda L, full=full: full(L)[-1:])
+    cut_sweeps_to_two_points(monkeypatch)
 
 
 @pytest.mark.parametrize("method", TRAINED)
@@ -114,23 +109,11 @@ def test_run_method_follows_the_reference(method, monkeypatch, two_point_grid):
     pcfg, jpcfg = _pcfgs(data)
 
     # the reference's run, recording each fit's head init and minibatch seed
-    # (its train_predictor turns the fit's key into both: predictor.py:120)
-    inits, seeds = {}, []
-    jhead_init = jpredictor.head_init
-
-    def recording_head_init(key, d, hidden, K):
-        seed = int(jax.random.randint(key, (), 0, 2 ** 31 - 1))
-        inits[seed] = np_tree(jhead_init(key, d, hidden, K))
-        seeds.append(seed)
-        return jhead_init(key, d, hidden, K)
-
-    monkeypatch.setattr(jpredictor, "head_init", recording_head_init)
+    inits, seeds = record_reference_fits(monkeypatch)
     want = jbaselines.run_method(jax.random.PRNGKey(5), jdata, method, jpcfg)
 
     # the port, fed the same inits and seeds
-    monkeypatch.setattr(tpredictor, "head_init",
-                        lambda seed, d, hidden, K, device=None:
-                        head_from_jax(inits[seed], device=device))
+    carry_reference_inits(monkeypatch, inits)
     sweep = method in ("s3", "egtp")
     if sweep:
         monkeypatch.setattr(baselines, "fit_seeds",

@@ -475,6 +475,39 @@ def test_prod_head_trace_features_log_edges(B, hid, qs):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("K", [16, 128])
+@pytest.mark.parametrize("spacing", ["linear", "log"])
+@pytest.mark.parametrize("qs", [None, QS], ids=["median", "qs"])
+def test_prod_head_bins_ablation_grids(K, spacing, qs):
+    """The bins ablation's heads (``launch/bench_bins_ablation.py``): the
+    Track-A width d=64, hidden 512, on the 400 test prompts of qwen/chat at
+    the fast profile, K = 16 and 128 bins (128 is the kernel's largest K)
+    with linear and log edges up to the scenario's bin_max, weights at the
+    head's init scales."""
+    from repro_torch.core.bins import make_edges
+    from repro_torch.data import make_scenario
+    from repro_torch.launch.table1 import scenario_pcfg
+
+    dev = cuda_device()
+    data = make_scenario("qwen", "chat", n_train=800, n_test=400, seed=0)
+    bin_max = scenario_pcfg(data, n_bins=K).bin_max
+    hid = 512
+    rng = np.random.default_rng(K)
+    arrs = [data.phi_test["last"], rng.standard_normal((64, hid)) / 8.0,
+            rng.standard_normal(hid) * 0.01, rng.standard_normal((hid, K)) / hid ** 0.5,
+            np.zeros(K)]
+    args = [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in arrs]
+    args.append(make_edges(K, bin_max, spacing, device=dev))
+    assert args[0].shape == (400, 64)
+    p_got, q_got = ops.prod_head(*args, qs=qs)
+    p_want, q_want = ref.prod_head_ref(*args, qs=qs)
+    torch.testing.assert_close(p_got, p_want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(q_got, q_want, rtol=1e-4, atol=1e-3)
+    p_again, q_again = ops.prod_head(*args, qs=qs)
+    assert torch.equal(p_got, p_again) and torch.equal(q_got, q_again)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c", [4.0, 8.0, 12.8])
 def test_prod_head_kernel_large_logits_vs_fp64(c):
     """At d=4096 with weights of std c/sqrt(fan_in) (c=12.8 is std 0.2, the

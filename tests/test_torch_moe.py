@@ -46,7 +46,7 @@ from repro_torch.common.config import TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.launch.serve import refuse_if_too_large  # noqa: E402
+from repro_torch.launch.serve import init_bytes, refuse_if_too_large  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
@@ -101,11 +101,14 @@ H100_BYTES = 80 * 2 ** 30                # an 80 GB card
 
 @pytest.mark.parametrize("arch,layers,fits", [(QWEN, None, False), (KIMI, None, False),
                                               (QWEN, 12, True), (KIMI, 1, True),
-                                              ("llama3-8b", None, True)])
+                                              ("llama3-8b", None, True), (KIMI, 2, False),
+                                              ("gemma3-27b", None, True)])
 def test_serve_refuses_weights_the_card_cannot_hold(arch, layers, fits):
     """``serve --mode real`` at full depth: Qwen3-MoE's 463 GB and Kimi's
     2.09 TB of bf16 weights are refused before allocating; the depths
-    chip_smoke.py serves (12 and 1 layers) and Llama-3-8B pass."""
+    chip_smoke.py serves (12 and 1 layers), Llama-3-8B and Gemma3-27B pass.
+    Kimi-K2 at 2 layers is refused: its 73.0 GB of leaves would fit, but the
+    init's 22.5 GB fp32 draw of its expert leaf on top of them does not."""
     cfg = get_config(arch)
     if layers:
         cfg = cfg.with_overrides(n_layers=layers)
@@ -114,6 +117,25 @@ def test_serve_refuses_weights_the_card_cannot_hold(arch, layers, fits):
     else:
         with pytest.raises(SystemExit, match="do not fit"):
             refuse_if_too_large(cfg, H100_BYTES)
+
+
+@pytest.mark.parametrize("arch,layers,leaves_gb,draw_gb", [(QWEN, 12, 61.34, 3.22),
+                                                           (KIMI, 1, 38.85, 22.55),
+                                                           (KIMI, 2, 72.99, 22.55),
+                                                           ("gemma3-27b", None, 56.58, 5.64)])
+def test_serve_guard_counts_what_the_init_allocates(arch, layers, leaves_gb, draw_gb):
+    """The guard sizes every leaf of the model's spec in bf16 (Gemma3-27B's
+    third MLP matrix included: 28.29 B leaves against param_count()'s
+    21.12 B) plus the largest leaf drawn in fp32, and names both sizes."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_overrides(n_layers=layers)
+    leaves, draw = init_bytes(cfg)
+    assert leaves / 1e9 == pytest.approx(leaves_gb, abs=0.01)
+    assert draw / 1e9 == pytest.approx(draw_gb, abs=0.01)
+    with pytest.raises(SystemExit, match=f"{leaves / 1e9:.1f} GB of bfloat16 leaves plus "
+                                         f"the {draw / 1e9:.1f} GB fp32 draw"):
+        refuse_if_too_large(cfg, 10 ** 9)
 
 
 # --------------------------------------------------------------------------
