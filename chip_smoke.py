@@ -13,7 +13,8 @@ script exits non-zero without its result line:
 3. kernels: each CUDA kernel against its plain PyTorch version at the serving
    shapes (and the fp32 flash and decode at the online phase's tiny-lm
    shapes; flash, decode and the head also at the dense configs' shapes:
-   GQA groups 7 and 48, MiniCPM-2B's 36-head MHA, d = 2304-7168; the head at
+   GQA groups 7 and 48, MiniCPM-2B's 36-head MHA, d = 2304-7168, and the
+   head at Whisper's and Qwen2-VL's d = 1280 and 1536; the head at
    the bins ablation's grids, d=64, B=400, K = 16 and 128, linear and log
    edges), with the
    stated tolerance, timed beside the plain version, one
@@ -38,7 +39,13 @@ script exits non-zero without its result line:
    backend beside it; then the MoE configs' heads (``moe_kernel_checks``):
    Qwen3-MoE's 64 query heads on 4 KV heads (hd=64, G=16) and Kimi-K2's 64
    on 8 at hd=112, flash at B=8, S=512 and decode at B=8, Sc=576 (Kimi's
-   with the split sweep), and fp32 flash and decode at hd=112;
+   with the split sweep), and fp32 flash and decode at hd=112; then
+   Whisper's and Qwen2-VL's shapes (``encdec_vlm_kernel_checks``): flash
+   over Whisper's encoder (non-causal, 1,500 frames), its decoder's causal
+   self-attention (S=224) and its cross-attention (non-causal, Sq=224 against
+   1,500 keys), Qwen2-VL's prefill (12 heads on 2, hd=128, G=6); decode on
+   Whisper's self cache, its static 1,500-slot cross cache (every key valid)
+   and at Qwen2-VL's G=6 (with the split sweep);
 4. serve, once per model, each at full width and depth with seeded random
    weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
    (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
@@ -64,7 +71,10 @@ script exits non-zero without its result line:
      (token, j) pairs dropped and the experts with no token are printed,
      at a decode step the distinct experts routed; the step is timed
      against two bounds, every expert read (what capacity dispatch reads)
-     and only the experts the step routed to.
+     and only the experts the step routed to;
+   - Qwen2-VL-2B (28 layers, d=1536, 12 heads on 2, M-RoPE, a tied
+     151,936-token vocabulary) on text tokens, where its three M-RoPE
+     streams are equal, r=2: flash, decode and head.
    The launch counts are set to 0 before each model's run and read after it;
    each kernel the model's path runs must have risen, and equal
    ``expected_launches`` when no row met EOS. The head kernel is then
@@ -82,6 +92,18 @@ script exits non-zero without its result line:
    (``gemma3_long_phase``: 4 prompts of 900-1,100 tokens, the 52 local
    layers decoding on rings), the flash and decode calls of one local and
    one full layer held against their plain versions by the same criterion;
+   qwen2-vl-2b embeds: Qwen2-VL on the embeds path (``vlm_embeds_phase``:
+   256 stub patches on a 16 x 16 grid, then text, B=8, S=512, M-RoPE's
+   streams apart, 8 decode steps; flash 28 and decode 224 launches, layer
+   0's calls held against their plain versions on V as served);
+   whisper-large-v3: Whisper at full width and depth (``whisper_phase``: 32
+   encoder + 32 decoder layers, B=8 utterances of 1,500 stub frames,
+   decoder prompts of 32-224 tokens, max_new=64, r=2), driven through
+   ``Model.prefill`` and ``Model.decode_step`` (``RealEngine`` takes no
+   encoder input); per prefill 96 flash calls, per decode step 64 decode
+   calls, the head twice; prefill and step against ``encdec_bounds``,
+   profiled; encoder, self and cross flash calls and the self and cross
+   decode calls held against their plain versions on V as served;
 5. table1: the paper's Table 1, fast profile (8 Track-A settings x 7
    methods), every head trained on the card; its claims must equal the
    reference's, and prod_head is the one kernel launched (32 times);
@@ -296,14 +318,16 @@ def kernel_checks(torch, ref, kernels):
     # (the static head on 48 prompts, the online head on ~256 decode
     # states) and the Llama online phase's on 512 states at d=4096. Then
     # B=8 at the dense configs' widths: Qwen2.5-7B 3584, Granite-20B 6144,
-    # MiniCPM-2B 2304, Yi-34B 7168.
+    # MiniCPM-2B 2304, Yi-34B 7168; and at Whisper-large-v3's 1280 and
+    # Qwen2-VL-2B's 1536.
     hidden = 512
     qs = torch.tensor([0.5, 0.9, 0.99], device=dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for B, d, K in ((8, 4096, 64), (8, 2048, 64), (8, 768, 64), (512, 4096, 64),
                     (200, 64, 64), (350, 64, 64), (700, 64, 64),
                     (48, 128, 24), (256, 128, 24), (512, 4096, 24),
-                    (8, 3584, 64), (8, 6144, 64), (8, 2304, 64), (8, 7168, 64)):
+                    (8, 3584, 64), (8, 6144, 64), (8, 2304, 64), (8, 7168, 64),
+                    (8, 1280, 64), (8, 1536, 64)):
         w1 = torch.randn(d, hidden, generator=g, device=dev) / d ** 0.5
         b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
         w2 = torch.randn(hidden, K, generator=g, device=dev) / hidden ** 0.5
@@ -754,8 +778,11 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
     as at hd=112 and 168, does more work than the bound counts). The decode
     rows are also timed with the L2 cache cold, and a row asked to sweeps
     other splits. ``flash_rows``: (B, S, H, KV, hd, dtype, lengths, window,
-    label); ``decode_rows``: (B, Sc, H, KV, hd, dtype, lengths, label,
-    sweep). Inputs are unit normal, drawn from ``seed``."""
+    label), causal with S keys, or with two more fields (causal, Skv): the
+    lengths are the keys' (an encoder: non-causal, Skv = S; cross-attention:
+    non-causal, Skv != S); ``decode_rows``: (B, Sc, H, KV, hd, dtype,
+    lengths, label, sweep). Inputs are unit normal, drawn from ``seed``.
+    Where no key is masked, SDPA is called with no mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import plan as decode_plan
@@ -765,16 +792,17 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
     bf = torch.bfloat16
     rows = []
 
-    def flash_row(B, S, Hq, Kv, hd, dtype, lens, window, label):
+    def flash_row(B, S, Hq, Kv, hd, dtype, lens, window, label, causal=True, Skv=None):
         tol = 2e-2 if dtype == bf else 2e-5
+        Skv = Skv or S
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         q = torch.randn(B, S, Hq, hd, generator=g, device=dev).to(dtype)
-        k = torch.randn(B, S, Kv, hd, generator=g, device=dev).to(dtype)
-        v = torch.randn(B, S, Kv, hd, generator=g, device=dev).to(dtype)
-        call = lambda: kernels["flash_attention"](q, k, v, causal=True, window=window,
+        k = torch.randn(B, Skv, Kv, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, Skv, Kv, hd, generator=g, device=dev).to(dtype)
+        call = lambda: kernels["flash_attention"](q, k, v, causal=causal, window=window,
                                                   kv_lengths=lens)
         out, again = call(), call()
-        plain = lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window,
+        plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                                 kv_lengths=lens)
         want = plain()
         torch.cuda.synchronize()
@@ -784,14 +812,17 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
         G = Hq // Kv
         qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
                       v.repeat_interleave(G, dim=2).transpose(1, 2))
-        pos = torch.arange(S, device=dev)
-        allowed = pos[None, :] <= pos[:, None]
+        qpos, kpos = torch.arange(S, device=dev), torch.arange(Skv, device=dev)
+        allowed = torch.ones((S, Skv), dtype=torch.bool, device=dev)
+        if causal:
+            allowed = kpos[None, :] <= qpos[:, None]
         if window:
-            allowed = allowed & (pos[:, None] - pos[None, :] < window)
-        mask = (allowed[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-        backend = sdpa_backend(torch, qt, kt, vt, mask)
+            allowed = allowed & (qpos[:, None] - kpos[None, :] < window)
+        mask = (allowed[None] & (kpos[None, None, :] < lens[:, None, None]))[:, None]
         pairs = int(mask.sum())
+        sdpa_mask = None if pairs == mask.numel() else mask
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
+        backend = sdpa_backend(torch, qt, kt, vt, sdpa_mask)
         eb = 2 if dtype == bf else 4
         nbytes = eb * (2 * B * S * Hq * hd + 2 * int(lens.long().sum()) * Kv * hd) + 4 * B
         flops = 4 * hd * Hq * pairs
@@ -799,9 +830,12 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
         empty = int((~mask.any(-1)).sum())
         print(f"flash_attention hd={hd} {label}: SDPA backend {backend}; {pairs} (query, key) "
               f"pairs, {empty} query rows with no valid key (padded rows included)")
+        kind = "causal" if causal else "non-causal"
+        keys = f"Sq={S} Skv={Skv}" if Skv != S else f"S={S}"
+        ragged = "all keys valid" if int(lens.min()) == Skv else "ragged"
         rows.append({"name": "flash_attention",
-                     "shape": f"B={B} S={S} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} causal "
-                              f"ragged{f' window={window}' if window else ''} ({label})",
+                     "shape": f"B={B} {keys} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} {kind} "
+                              f"{ragged}{f' window={window}' if window else ''} ({label})",
                      "max_abs_err": max_err(torch, out, want),
                      "ms": time_ms(torch, call), "plain_ms": time_ms(torch, plain, iters=3),
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, sdpa),
@@ -840,8 +874,10 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
         nbytes = eb * (2 * B * Hq * hd + 2 * n_keys * Kv * hd) + 4 * B
         flops = 4 * hd * Hq * n_keys
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == bf else FP32_FLOPS)
+        ragged = "all keys valid" if int(dl.min()) == Sc else "ragged"
         row = {"name": "decode_attention",
-               "shape": f"B={B} Sc={Sc} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} ragged ({label})",
+               "shape": f"B={B} Sc={Sc} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} {ragged} "
+                        f"({label})",
                "max_abs_err": max_err(torch, out, want), "ms": time_ms(torch, call, iters=50),
                "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": time_ms(torch, sdpa, iters=50), "bytes": nbytes, "flops": flops,
@@ -933,6 +969,35 @@ def moe_kernel_checks(torch, ref, kernels):
     return width_checks(torch, ref, kernels, flash, decode, seed=20, what="moe kernels")
 
 
+WHISPER_PLENS = (224, 32, 181, 97, 212, 64, 150, 129)     # decoder prompts, padded to 224
+
+
+def encdec_vlm_kernel_checks(torch, ref, kernels):
+    """Phase 3, the shapes Whisper-large-v3 (20 heads of 64, MHA) and
+    Qwen2-VL-2B (12 query heads on 2 KV heads of 128, G=6) give the
+    attention kernels, through ``width_checks``, all bf16 at B=8: flash over
+    Whisper's encoder (non-causal, 1,500 frames, every key valid), its
+    decoder's causal self-attention over the prompts (S=224, ragged) and its
+    cross-attention (non-causal, Sq=224 against the 1,500 encoder keys: the
+    last query tile holds 96 rows and the last key tile 92 keys), and
+    Qwen2-VL's causal prefill (S=512, ragged); decode on Whisper's self cache
+    (Sc=288, ragged), on its static cross cache (Sc=1,500, every key valid)
+    and at Qwen2-VL's G=6, padded to a head tile of 8 (Sc=576, with the
+    split sweep)."""
+    bf = torch.bfloat16
+    enc = (1500,) * 8
+    flash = [(8, 1500, 20, 20, 64, bf, enc, 0, "whisper encoder", False),
+             (8, 224, 20, 20, 64, bf, WHISPER_PLENS, 0, "whisper decoder self"),
+             (8, 224, 20, 20, 64, bf, enc, 0, "whisper cross", False, 1500),
+             (8, 512, 12, 2, 128, bf, G3_SERVE_LENS, 0, "qwen2-vl serve")]
+    decode = [(8, 288, 20, 20, 64, bf, tuple(n + 64 for n in WHISPER_PLENS), "whisper self",
+               False),
+              (8, 1500, 20, 20, 64, bf, enc, "whisper cross", False),
+              (8, 576, 12, 2, 128, bf, DECODE_SERVE_LENS, "qwen2-vl serve", True)]
+    return width_checks(torch, ref, kernels, flash, decode, seed=22,
+                        what="whisper and qwen2-vl kernels")
+
+
 def report_rows(rows) -> None:
     """Achieved rates (bytes and operations) and the share of the bound, of
     the eager call and of the device time, added to each row and printed."""
@@ -983,6 +1048,8 @@ SERVE_PHASES = (
     # init peaks near 61 GB, drawing a 22.5 GB fp32 expert tensor)
     ("qwen3-moe-235b-a22b", 2, DENSE, True, 12),
     ("kimi-k2-1t-a32b", 2, DENSE, True, 1),
+    # on text tokens, where its three M-RoPE streams are equal
+    ("qwen2-vl-2b", 2, DENSE, True, None),
 )
 
 
@@ -2476,35 +2543,338 @@ def gemma3_long_phase(torch, ref, counters):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     for i, kind in ((0, "local"), (full, "full")):
-        (q, k, v), kw = fl.calls[i]
-        window = W if kind == "local" else 0
-        check(kw["window"] == window, f"gemma3 long: layer {i} flash window {kw['window']}")
-        flash = lambda vv: counters["flash_attention"](q, k, vv, causal=True, window=window,
-                                                       kv_lengths=kw["kv_lengths"])
-        plain = lambda vv: ref.flash_attention_ref(q, k, vv, causal=True, window=window,
-                                                   kv_lengths=kw["kv_lengths"])
-        got, want = flash(v), plain(v)
-        worst, beyond = held(got, want, plain(v.abs()))
-        torch.cuda.synchronize()
-        print(f"gemma3 long: layer {i} ({kind}) flash B={B} S={Sp} hd={cfg.head_dim}, v as "
-              f"served (max|v| {float(v.float().abs().max()):.3g}): max|kernel-plain| "
-              f"{max_err(torch, got, want):.3g}, worst error {worst:.3g} of its tolerance "
-              f"2e-2 * sum p|v|")
-        check(beyond == 0, f"gemma3 long: layer {i} flash {beyond} elements beyond "
-              f"2e-2 * sum p|v| (worst {worst:.3g} of it)")
-        (qd, kc, vc, dl), _ = dc.calls[i]
+        kw = fl.calls[i][1]
+        check(kw["causal"] and kw["window"] == (W if kind == "local" else 0),
+              f"gemma3 long: layer {i} flash causal {kw['causal']} window {kw['window']}")
+        _hold_flash(torch, ref, counters, f"gemma3 long: layer {i} ({kind})", fl.calls[i])
+        (_, kc, _, dl), _ = dc.calls[i]
         want_len = [min(n + 1, W) if kind == "local" else n + 1 for n in G3_LONG_LENS]
         check(dl.tolist() == want_len and kc.shape[1] == slots[i],
               f"gemma3 long: layer {i} decode lengths {dl.tolist()} on {kc.shape[1]} slots")
-        got = counters["decode_attention"](qd, kc, vc, dl)
-        want = ref.decode_attention_ref(qd, kc, vc, dl)
-        worst, beyond = held(got, want, ref.decode_attention_ref(qd, kc, vc.abs(), dl))
-        torch.cuda.synchronize()
-        print(f"gemma3 long: layer {i} ({kind}) decode on {kc.shape[1]} slots, lengths "
-              f"{dl.tolist()}: max|kernel-plain| {max_err(torch, got, want):.3g}, worst error "
-              f"{worst:.3g} of its tolerance 2e-2 * sum p|v|")
-        check(beyond == 0, f"gemma3 long: layer {i} decode {beyond} elements beyond "
-              f"2e-2 * sum p|v| (worst {worst:.3g} of it)")
+        _hold_decode(torch, ref, counters, f"gemma3 long: layer {i} ({kind})", dc.calls[i])
+    return launches
+
+
+def encdec_bounds(cfg, B: int, plens, cache_len: int, n_keys: int = 0):
+    """Least times of one Whisper prefill and one decode step (the encdec
+    branch of ``model_bounds``). Prefill, at the bf16 peak: the encoder's
+    weight products over B x F frames and its non-causal attention pairs
+    (4 hd FLOPs a pair a head: Q K^T and P V), the cross K/V projections
+    over the frames, the decoder's weight products over B x Sp tokens (self
+    q, k, v, o, cross q and o, the MLP), its causal self-attention pairs
+    (ragged: a padded query row sees its row's keys) and its cross pairs
+    over every frame. Decode step, over the memory rate: the decoder's
+    weights (the cross K/V projections are not read: the cross K/V are
+    cached), the embedding once (the unembed reads it all), the cross K/V
+    (B x F keys a layer) and the self K/V (``n_keys`` a layer, or all B x
+    cache_len slots). Returns (prefill FLOPs, ms, step bytes, ms)."""
+    d, hd, L, F = cfg.d_model, cfg.head_dim, cfg.n_layers, cfg.encoder_seq
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    attn_w = d * (H + 2 * KV) * hd + H * hd * d
+    mlp_w, kv_w, qo_w = 2 * d * cfg.d_ff, 2 * d * KV * hd, 2 * d * H * hd
+    Sp = max(plens)
+    self_pairs = sum(min(q + 1, n) for n in plens for q in range(Sp))
+    flops = (2 * B * F * cfg.n_encoder_layers * (attn_w + mlp_w)
+             + cfg.n_encoder_layers * 4 * hd * H * B * F * F
+             + 2 * B * F * L * kv_w
+             + 2 * B * Sp * L * (attn_w + qo_w + mlp_w)
+             + L * 4 * hd * H * (self_pairs + B * Sp * F))
+    step_bytes = 2 * (L * (attn_w + qo_w + mlp_w) + cfg.vocab_size * d
+                      + L * 2 * (B * F + (n_keys or B * cache_len)) * KV * hd)
+    return flops, flops / BF16_FLOPS * 1e3, step_bytes, step_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def _sample(torch, logits, gen, temp: float = 0.8):
+    """``RealEngine._sample``: a draw from softmax(logits / T) by the
+    Gumbel argmax, at the engine's temperature."""
+    e = torch.empty_like(logits).exponential_(generator=gen)
+    return torch.argmax(logits / temp - torch.log(e), dim=-1)
+
+
+def _hold_flash(torch, ref, counters, label, call):
+    """A captured flash call against its plain version on its own inputs,
+    held on V as served (``held``)."""
+    (q, k, v), kw = call
+    got = counters["flash_attention"](q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    worst, beyond = held(got, want, ref.flash_attention_ref(q, k, v.abs(), **kw))
+    torch.cuda.synchronize()
+    print(f"{label}: flash q {tuple(q.shape)} k {tuple(k.shape)} causal={kw['causal']}: "
+          f"max|kernel-plain| {max_err(torch, got, want):.3g}, worst error {worst:.3g} of its "
+          f"tolerance 2e-2 * sum p|v|")
+    check(beyond == 0, f"{label}: flash {beyond} elements beyond 2e-2 * sum p|v|")
+
+
+def _hold_decode(torch, ref, counters, label, call):
+    """A captured decode call, as ``_hold_flash``."""
+    (q, kc, vc, dl), _ = call
+    got = counters["decode_attention"](q, kc, vc, dl)
+    want = ref.decode_attention_ref(q, kc, vc, dl)
+    worst, beyond = held(got, want, ref.decode_attention_ref(q, kc, vc.abs(), dl))
+    torch.cuda.synchronize()
+    print(f"{label}: decode on {kc.shape[1]} slots, lengths {dl.tolist()}: max|kernel-plain| "
+          f"{max_err(torch, got, want):.3g}, worst error {worst:.3g} of its tolerance "
+          f"2e-2 * sum p|v|")
+    check(beyond == 0, f"{label}: decode {beyond} elements beyond 2e-2 * sum p|v|")
+
+
+def whisper_phase(torch, ref, counters):
+    """Whisper-large-v3 at full width and depth (32 encoder + 32 decoder
+    layers, d=1280, bf16, seeded random weights), driven through
+    ``Model.prefill`` and ``Model.decode_step`` as the reference's own tests
+    drive it (its ``RealEngine`` feeds tokens only; the port's refuses an
+    encoder-decoder): B=8 utterances of 1,500 stub frames
+    (``audio_frame_embeds``, Whisper's 30 s window), decoder prompts of
+    32-224 tokens right-padded to 224, max_new=64 (positions stay inside
+    the 448-token decoder context), r=2 generations sampled from a seeded
+    ``torch.Generator`` at ``RealEngine``'s temperature, a row stopping at
+    EOS. φ goes through ``fit_and_predict`` and the head. Launches, counted
+    from 0 over the r generations and the head: per prefill 32 encoder + 32
+    self + 32 cross flash calls, per decode step 32 self + 32 cross decode
+    calls, the head twice, no scan. Then one prefill and one decode step are
+    timed against ``encdec_bounds`` and profiled, and (captured in a second,
+    uncounted prefill and step) the flash calls of encoder layer 0 and of
+    decoder layer 0's self- and cross-attention and the decode calls of its
+    self and cross caches are held against their plain versions on their
+    own inputs, on V as served."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fit_and_predict
+    from repro_torch.models.frontend import audio_frame_embeds
+    from repro_torch.models.model_zoo import build_model, last_token_hidden
+
+    dev = torch.device("cuda")
+    name = "whisper-large-v3"
+    cfg = get_config(name)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(int(p.numel()) for p in _leaves(params))
+    L, F = cfg.n_layers, cfg.encoder_seq
+    print(f"serve {name}: {n_params / 1e9:.3f}B params ({cfg.dtype}, d={cfg.d_model}, "
+          f"{cfg.n_encoder_layers} encoder + {L} decoder layers, {F} frames) initialised in "
+          f"{time.perf_counter() - t0:.1f} s; param_count() {cfg.param_count() / 1e9:.3f}B "
+          f"(the reference's formula, which counts the one embedding table twice)")
+
+    B, Sp, max_new, r = 8, 224, 64, 2
+    plens = np.array(WHISPER_PLENS)
+    rng = np.random.default_rng(0)
+    prompts = np.zeros((B, Sp), np.int64)
+    for i, n in enumerate(plens):
+        prompts[i, :n] = rng.integers(3, cfg.vocab_size, size=n)
+    tokens = torch.as_tensor(prompts, device=dev)
+    lens_t = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+    valid = torch.arange(Sp, device=dev)[None, :] < lens_t[:, None]
+    frames = audio_frame_embeds(torch.Generator(device=dev).manual_seed(1), cfg, B)
+    eos = 2
+
+    @torch.no_grad()
+    def generate(gen):
+        """RealEngine.generate's loop with the encoder input: returns the
+        lengths, φ and the decode steps run."""
+        _, hidden, pcache = model.prefill(params, tokens, attn_valid=valid, enc_embeds=frames,
+                                          logits_mode="none")
+        last = last_token_hidden(hidden, lens_t)
+        logits = model.unembed(params, last)
+        cache = model.decode_cache(pcache, Sp + max_new)
+        del pcache
+        lengths = lens_t.clone()
+        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        gen_len = torch.zeros(B, dtype=torch.int64, device=dev)
+        steps = 0
+        for step in range(max_new):
+            nxt = torch.where(finished, torch.full_like(lens_t, eos, dtype=torch.long),
+                              _sample(torch, logits, gen))
+            newly = ~finished & (nxt == eos)
+            finished = finished | (nxt == eos)
+            gen_len = torch.where(newly, step + 1, gen_len)
+            if bool(finished.all()):
+                break
+            logits, _ = model.decode_step(params, nxt, cache, lengths, lengths + 1)
+            steps += 1
+            lengths = lengths + (~finished).to(torch.int32)
+        gen_len = torch.where(gen_len == 0, max_new, gen_len)
+        return gen_len.cpu().numpy(), last.float().cpu().numpy(), steps
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lens = np.zeros((B, r), np.int64)
+    steps = 0
+    for j in range(r):
+        lens[:, j], phi_j, n = generate(torch.Generator(device=dev).manual_seed(j))
+        if j == 0:
+            phi = phi_j
+        steps += n
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    out = fit_and_predict(lens, phi, cfg.predictor_bins, seed=1, qs=(0.5, 0.9), device=dev)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+
+    check(phi.shape == (B, cfg.d_model) and np.isfinite(phi).all(), f"{name}: phi shape/finite")
+    check(lens.min() >= 1 and lens.max() <= max_new, f"{name}: lengths range")
+    med, quants = out["median"], out["quantiles"]
+    check(np.isfinite(med).all() and np.isfinite(quants).all(), f"{name}: predictions finite")
+    check((quants[:, 1] >= quants[:, 0] - 1e-4).all(), f"{name}: q0.9 >= q0.5")
+    expect = {"flash_attention": r * (cfg.n_encoder_layers + 2 * L),
+              "decode_attention": 2 * L * steps, "prod_head": 2, "ssd_scan": 0}
+    print(f"serve {name}: launches on the main path {json.dumps(launches)}; expected "
+          f"{json.dumps(expect)} ({steps} decode steps over r={r})")
+    check(launches == expect, f"{name}: launches {launches}, expected {expect}")
+    n_tok = int(lens.sum())
+    print(f"serve {name}: B={B} x {F} frames, Sp={Sp} r={r} max_new={max_new}: {gen_s:.2f} s, "
+          f"{n_tok} generated tokens, {n_tok / gen_s:.1f} tokens/s, "
+          f"{1e3 * gen_s / max(steps, 1):.2f} ms per decode step (wall over {steps} steps, "
+          f"the r prefills included)")
+    print(f"serve {name}: lengths {lens.tolist()}")
+    print(f"serve {name}: median {np.round(med, 3).tolist()} q0.9 "
+          f"{np.round(quants[:, 1], 3).tolist()} test MAE {out['mae']:.3f} noise radius "
+          f"{out['noise_radius']:.3f} final soft-CE {out['final_loss']:.4f}")
+    head_checks(torch, counters["prod_head"], out["predictor"],
+                torch.as_tensor(phi[B // 2:], dtype=torch.float32, device=dev), sweep=False)
+
+    nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        prefill = lambda: model.prefill(params, tokens, attn_valid=valid, enc_embeds=frames,
+                                        logits_mode="none")
+        prefill_ms = time_ms(torch, prefill, iters=3, warmup=1)
+        enc = cfg.n_encoder_layers
+        with capture(ops, "flash_attention", at=(0, enc, enc + 1)) as fl:
+            _, _, pcache = prefill()
+        cache = model.decode_cache(pcache, Sp + max_new)
+        del pcache
+        check([tuple(e["ck"].shape) for e in cache[:1]] == [(B, F, cfg.n_kv_heads, cfg.head_dim)]
+              and cache[0]["k"].shape[1] == Sp + max_new,
+              f"{name}: decode cache {tuple(cache[0]['k'].shape)} / {tuple(cache[0]['ck'].shape)}")
+        step = lambda: model.decode_step(params, nxt, cache, lens_t, lens_t + 1)
+        with capture(ops, "decode_attention", at=(0, 1)) as dc:
+            step()
+        step_ms = time_ms(torch, step, iters=10, warmup=2)
+        flops, flops_ms, step_bytes, bytes_ms = encdec_bounds(cfg, B, plens, Sp + max_new)
+        print(f"serve {name}: prefill (B={B}, {F} frames, Sp={Sp}) {prefill_ms:.2f} ms, bound "
+              f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP: encoder, cross K/V, decoder and "
+              f"attention pairs); decode step (B={B}, Sc={Sp + max_new}, cross {F}) "
+              f"{step_ms:.2f} ms, bound {bytes_ms:.3f} ms ({step_bytes / 1e9:.2f} GB)")
+        device_profile(torch, prefill, f"{name} prefill")
+        device_profile(torch, step, f"{name} decode step")
+    _hold_flash(torch, ref, counters, f"{name} encoder layer 0", fl.calls[0])
+    _hold_flash(torch, ref, counters, f"{name} decoder layer 0 self", fl.calls[enc])
+    _hold_flash(torch, ref, counters, f"{name} decoder layer 0 cross", fl.calls[enc + 1])
+    check(fl.calls[enc + 1][1]["causal"] is False and fl.calls[enc + 1][0][1].shape[1] == F,
+          f"{name}: cross-attention call {fl.calls[enc + 1][1]}")
+    (_, _, _, self_len), _ = dc.calls[0]
+    (_, ck, _, cross_len), _ = dc.calls[1]
+    check(self_len.tolist() == [n + 1 for n in plens.tolist()]
+          and cross_len.tolist() == [F] * B and ck.shape[1] == F,
+          f"{name}: decode lengths {self_len.tolist()} / {cross_len.tolist()}")
+    _hold_decode(torch, ref, counters, f"{name} decoder layer 0 self", dc.calls[0])
+    _hold_decode(torch, ref, counters, f"{name} decoder layer 0 cross", dc.calls[1])
+    print(f"serve {name}: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated; weights {2 * n_params / 1e9:.2f} GB, cross K/V "
+          f"{4 * L * B * F * cfg.n_kv_heads * cfg.head_dim / 1e9:.2f} GB)")
+    return launches
+
+
+VLM_PATCHES = 256     # Qwen2-VL's stub image: a 16 x 16 grid of patches
+
+
+def vlm_embeds_phase(torch, ref, counters):
+    """Qwen2-VL-2B at full width and depth on the embeds path: B=8 rows of
+    ``vlm_embeds`` (256 stub patches on a 16 x 16 grid, then text, S=512),
+    prefilled with their (3, B, S) M-RoPE positions (the three streams apart
+    on the patches), then 8 decode steps sampled at ``RealEngine``'s
+    temperature, each step's position given to all three streams (the first
+    at S, as in the reference). Launches, counted from 0: 28 flash calls, 8
+    x 28 decode calls, nothing else. Then the prefill and a step are timed
+    against ``model_bounds`` and profiled, and layer 0's flash call and a
+    step's first decode call (captured, uncounted) are held against their
+    plain versions on V as served. Before the prefill, the position streams
+    are checked: patch i at (0, i // 16, i % 16), the text after them at
+    t = h = w = 1, 2, ..."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.frontend import vlm_embeds
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import layer_kinds
+
+    dev = torch.device("cuda")
+    name = "qwen2-vl-2b"
+    cfg = get_config(name)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=dev)
+    n_params = sum(int(p.numel()) for p in _leaves(params))
+    kinds = layer_kinds(cfg)
+    B, S, steps = 8, 512, 8
+    emb, pos = vlm_embeds(torch.Generator(device=dev).manual_seed(2), cfg, B, S,
+                          n_patches=VLM_PATCHES)
+    i = torch.arange(VLM_PATCHES, device=dev)
+    text = torch.arange(1, S - VLM_PATCHES + 1, device=dev)
+    check(torch.equal(pos[:, 0, :VLM_PATCHES].long(), torch.stack([0 * i, i // 16, i % 16]))
+          and torch.equal(pos[:, 0, VLM_PATCHES:].long(), text.expand(3, -1)),
+          f"{name}: M-RoPE position streams")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    @torch.no_grad()
+    def run():
+        _, hidden, pcache = model.prefill(params, embeds=emb, positions=pos, logits_mode="none")
+        logits = model.unembed(params, hidden[:, -1])
+        cache = model.decode_cache(pcache, S + steps)
+        del pcache
+        at = torch.full((B,), S, dtype=torch.int32, device=dev)
+        for t in range(steps):
+            logits, hid = model.decode_step(params, _sample(torch, logits, gen), cache, at + t,
+                                            at + t + 1)
+        return hidden[:, -1], hid
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi, last = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    expect = {"flash_attention": len(kinds), "decode_attention": steps * len(kinds),
+              "prod_head": 0, "ssd_scan": 0}
+    print(f"{name} embeds: B={B} S={S} ({VLM_PATCHES} patches on a 16 x 16 grid, then "
+          f"text), {steps} decode steps: {wall:.2f} s, {B * steps / wall:.1f} tokens/s "
+          f"(prefill included); launches {json.dumps(launches)}, expected {json.dumps(expect)}")
+    check(launches == expect, f"{name} embeds: launches {launches}, expected {expect}")
+    check(bool(torch.isfinite(phi).all() and torch.isfinite(last).all()),
+          f"{name} embeds: hidden states finite")
+
+    with torch.no_grad():
+        prefill = lambda: model.prefill(params, embeds=emb, positions=pos, logits_mode="none")
+        prefill_ms = time_ms(torch, prefill, iters=3, warmup=1)
+        with capture(ops, "flash_attention") as fl:
+            _, _, pcache = prefill()
+        cache = model.decode_cache(pcache, S + steps)
+        del pcache
+        at = torch.full((B,), S, dtype=torch.int32, device=dev)
+        nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
+        step = lambda: model.decode_step(params, nxt, cache, at, at + 1)
+        with capture(ops, "decode_attention") as dc:
+            step()
+        step_ms = time_ms(torch, step, iters=10, warmup=2)
+        flops, flops_ms, step_bytes, bytes_ms = model_bounds(cfg, kinds, n_params, B, S,
+                                                             S + steps, n_keys=B * (S + 1))
+        print(f"{name} embeds: prefill (B={B}, S={S}) {prefill_ms:.2f} ms, bound "
+              f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP of weight products); decode step "
+              f"(B={B}, {S + 1} keys a row) {step_ms:.2f} ms, bound {bytes_ms:.3f} ms "
+              f"({step_bytes / 1e9:.2f} GB)")
+        device_profile(torch, prefill, f"{name} embeds prefill")
+        device_profile(torch, step, f"{name} embeds decode step")
+    _hold_flash(torch, ref, counters, f"{name} embeds layer 0", fl.calls[0])
+    _hold_decode(torch, ref, counters, f"{name} embeds layer 0", dc.calls[0])
+    print(f"{name} embeds: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(weights {2 * n_params / 1e9:.2f} GB)")
     return launches
 
 
@@ -2624,30 +2994,60 @@ def main() -> int:
 
     kernels = {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
                "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
+    wall, since = {}, [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        """Wall seconds of the phase that just ended (printed before the
+        kernels line: the script must end well inside its time limit)."""
+        now = time.perf_counter()
+        wall[phase], since[0] = round(now - since[0], 1), now
+
     rows = kernel_checks(torch, ref, kernels)
     rows += gemma3_kernel_checks(torch, ref, kernels)
     rows += moe_kernel_checks(torch, ref, kernels)
+    rows += encdec_vlm_kernel_checks(torch, ref, kernels)
+    mark("kernels")
     by_phase = {}
     for i, (name, r, on_path, profile, depth) in enumerate(SERVE_PHASES):
         by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0),
                                profile=profile, depth=depth)
         gc.collect()                 # each model's weights go before the next's
         torch.cuda.empty_cache()
+        mark(name)
     by_phase["long"] = long_phase(torch, ref, kernels)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("long")
     by_phase["gemma3 long"] = gemma3_long_phase(torch, ref, kernels)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("gemma3 long")
+    by_phase["qwen2-vl-2b embeds"] = vlm_embeds_phase(torch, ref, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("qwen2-vl-2b embeds")
+    by_phase["whisper-large-v3"] = whisper_phase(torch, ref, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("whisper-large-v3")
     by_phase["table1"], t1_rows = table1_phase(torch, kernels)
+    mark("table1")
     by_phase["ablations"] = ablations_phase(torch, kernels, t1_rows)
+    mark("ablations")
     by_phase["sim"] = sim_phase(torch, kernels)
     by_phase["single"] = single_phase(torch, kernels)
+    mark("sim, single")
     by_phase["cluster"] = cluster_phase(torch, kernels)
+    mark("cluster")
     by_phase["train"] = train_phase(torch, kernels)
     torch.cuda.empty_cache()
+    mark("train")
     by_phase["online"] = online_phase(torch, ref, kernels)
+    mark("online")
     by_phase["e2e"] = e2e_phase(torch, kernels)
+    mark("e2e")
+    print(f"phase wall times (s): {json.dumps(wall)}; {sum(wall.values()):.1f} s from the "
+          f"kernel phase to the end")
 
     sources = {"prod_head": ("src/repro_torch/kernels/csrc/prod_head.cu",
                              "src/repro/kernels/prod_head.py:61"),

@@ -48,9 +48,13 @@ class ModelConfig:
     ssm_conv_width: int = 4
     attn_every: int = 0              # hybrid: apply shared attn block every k ssm layers
 
+    # --- enc-dec (Whisper) ---------------------------------------------------
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500          # frame positions of the stub audio frontend
+
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
-    act: str = "silu"
+    act: str = "silu"                # silu | gelu_gated (gated MLPs) | gelu (plain MLP)
     dtype: str = "bfloat16"
     citation: str = ""
 
@@ -81,11 +85,14 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count, the reference's formula for the families
-        the port builds (dense, moe, ssm, hybrid; the shared block counted
-        once; a MoE layer's experts, shared experts and router). Like the
-        reference's, it counts a ``gelu_gated`` MLP as two matrices though it
-        holds three (Gemma3-27B: 21.12 B here, 28.29 B in its leaves)."""
+        """Analytic parameter count, the reference's formula: the hybrid's
+        shared block counted once; a MoE layer's experts, shared experts and
+        router; an encdec model's encoder layers and its decoder layers with
+        self- and cross-attention. Like the reference's, it counts a
+        ``gelu_gated`` MLP as two matrices though it holds three (Gemma3-27B:
+        21.12 B here, 28.29 B in its leaves), leaves out the norms, and counts
+        an untied embedding twice, so Whisper's one table, which its unembed
+        reuses, counts twice (1.60 B here, 1.53 B in its leaves)."""
         d, L, V = self.d_model, self.n_layers, self.vocab_size
         emb = V * d * (1 if self.tie_embeddings else 2)
         attn = self._attn_params()
@@ -99,9 +106,11 @@ class ModelConfig:
             total = L * self._ssm_layer_params()
         elif self.family == "hybrid":
             total = L * self._ssm_layer_params() + attn + ffn(self.d_ff)
+        elif self.family == "encdec":
+            total = (self.n_encoder_layers * (attn + ffn(self.d_ff))
+                     + L * (2 * attn + ffn(self.d_ff)))
         else:
-            raise ValueError(f"{self.name}: no parameter count for family {self.family!r} "
-                             "in the port yet")
+            raise ValueError(f"{self.name}: unknown family {self.family!r}")
         return int(total + emb)
 
     def active_param_count(self) -> int:
@@ -134,11 +143,8 @@ class ModelConfig:
         reference's ``reduced``): 4 experts, top-2, of width 128 and at most
         one shared expert, SSM state<=16 in 4 heads of 32, a hybrid
         attending every layer, a window of at most 16, a local/global mix of
-        one local layer and one full one."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{self.name}: reduced() covers the dense, moe, ssm and hybrid families "
-                "(ROADMAP Queue 1 item 11)")
+        one local layer and one full one, at most 32 encoder frames and 2
+        encoder layers."""
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4)
         kv = min(self.n_kv_heads, heads)
@@ -146,7 +152,8 @@ class ModelConfig:
             kv -= 1
         kw = dict(name=self.name + "-smoke", n_layers=2, d_model=d, n_heads=heads,
                   n_kv_heads=kv, head_dim=d // heads, d_ff=min(self.d_ff, 512) or self.d_ff,
-                  vocab_size=min(self.vocab_size, 512))
+                  vocab_size=min(self.vocab_size, 512),
+                  encoder_seq=min(self.encoder_seq, 32))
         if self.family == "moe":
             kw.update(n_experts=4, n_experts_per_token=2, moe_d_ff=128,
                       n_shared_experts=min(self.n_shared_experts, 1))
@@ -155,6 +162,8 @@ class ModelConfig:
                       ssm_chunk=16)
         if self.family == "hybrid":
             kw.update(attn_every=1)
+        if self.n_encoder_layers:
+            kw.update(n_encoder_layers=2)
         if self.attn_window:
             kw.update(attn_window=min(self.attn_window, 16))
         if self.local_global_ratio:

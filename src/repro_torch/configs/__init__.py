@@ -1,6 +1,5 @@
-"""Architecture registry of the port: the configs this slice serves.
-
-The other families of ``repro.configs`` wait for their slices (ROADMAP.md).
+"""Architecture registry of the port: every config of ``repro.configs``
+(its 10 assigned architectures, the paper's two served models and tiny-lm).
 """
 
 from __future__ import annotations
@@ -9,8 +8,8 @@ from typing import List
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.configs import (gemma3_27b, granite_20b, kimi_k2_1t_a32b, llama3_8b,
-                                 mamba2_130m, minicpm_2b, qwen3_moe_235b_a22b, qwen25_7b,
-                                 tiny_lm, yi_34b, zamba2_1p2b)
+                                 mamba2_130m, minicpm_2b, qwen2_vl_2b, qwen3_moe_235b_a22b,
+                                 qwen25_7b, tiny_lm, whisper_large_v3, yi_34b, zamba2_1p2b)
 
 _MAKERS = {
     "llama3-8b": llama3_8b.make_config,
@@ -24,6 +23,8 @@ _MAKERS = {
     "tiny-lm": tiny_lm.make_config,
     "mamba2-130m": mamba2_130m.make_config,
     "zamba2-1.2b": zamba2_1p2b.make_config,
+    "whisper-large-v3": whisper_large_v3.make_config,
+    "qwen2-vl-2b": qwen2_vl_2b.make_config,
 }
 
 
@@ -33,6 +34,5 @@ def list_archs() -> List[str]:
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MAKERS:
-        raise KeyError(f"unknown arch {arch!r}; ported so far: {sorted(_MAKERS)} "
-                       f"(the rest are queued in ROADMAP.md)")
+        raise KeyError(f"unknown arch {arch!r}; options: {sorted(_MAKERS)}")
     return _MAKERS[arch]()

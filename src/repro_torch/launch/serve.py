@@ -14,7 +14,8 @@
                through the fused head. ``--model`` picks any ported config
                (default ``tiny-lm``, as the reference; Llama-3-8B,
                Qwen2.5-7B, Granite-20B, MiniCPM-2B, Yi-34B, Gemma3-27B,
-               Zamba2-1.2B and Mamba2-130M at full size in bf16) with seeded random
+               Zamba2-1.2B, Mamba2-130M and Qwen2-VL-2B (on text) at full size in
+               bf16) with seeded random
                weights, or the weights of a ``launch/train.py`` checkpoint
                (``--ckpt``; its whole train state, AdamW moments included,
                is checked against the model's before the params are taken).
@@ -23,6 +24,10 @@
                before anything is allocated:
                Qwen3-MoE-235B-A22B (463 GB of bf16) and Kimi-K2 (2.09 TB)
                at full depth; ``chip_smoke.py`` serves them cut in depth.
+               Whisper-large-v3 is refused too: the engine feeds prompt
+               tokens only and an encoder-decoder needs its encoder input
+               (``chip_smoke.py`` drives it through ``Model.prefill`` and
+               ``Model.decode_step``).
 
 ``--device`` defaults to ``cuda``.
 
@@ -53,7 +58,7 @@ from repro_torch.core.predictor import train_predictor
 from repro_torch.data import make_scenario
 from repro_torch.data.tokenizer import N_TOPICS, ToyTokenizer
 from repro_torch.models.model_zoo import build_model
-from repro_torch.serving.engine import RealEngine, SimEngine
+from repro_torch.serving.engine import RealEngine, SimEngine, check_token_only
 from repro_torch.serving.request import workload_from_scenario
 from repro_torch.serving.scheduler import Policy
 from repro_torch.training.checkpoint import restore_checkpoint
@@ -166,6 +171,10 @@ def refuse_if_too_large(cfg: ModelConfig, total_memory: int) -> None:
 def run_real(args) -> Dict[str, object]:
     dev = resolve_device(args.device)
     cfg = serving_config(args.model)
+    try:
+        check_token_only(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if dev.type == "cuda":
         refuse_if_too_large(cfg, torch.cuda.get_device_properties(dev).total_memory)
     model = build_model(cfg)

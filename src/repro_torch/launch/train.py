@@ -3,7 +3,8 @@
 Trains a ported dense config in fp32 on the toy corpus: tiny-lm as it is,
 any other arch (or tiny-lm with ``--smoke``) at the reference's reduced
 size (2 layers, d_model <= 256). SSM and hybrid training wait for the
-scan's training form (ROADMAP.md, queue 1 item 11). ``--device`` defaults
+scan's training form (ROADMAP.md, queue 1 item 11); VLM and encoder-decoder
+configs are refused, as the reference refuses them. ``--device`` defaults
 to ``cuda``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 50
@@ -44,6 +45,8 @@ def main(argv=None) -> TrainState:
     if args.smoke or args.arch != "tiny-lm":
         cfg = cfg.reduced()
     cfg = cfg.with_overrides(dtype="float32")
+    if cfg.family in ("vlm", "encdec"):
+        raise SystemExit("use family-specific examples for vlm/encdec training")
     model = build_model(cfg)
     tcfg = TrainConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                        decay_steps=args.steps, seed=args.seed, remat="none")

@@ -37,7 +37,7 @@ def attn_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return s
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def head_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matrix product."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
@@ -49,7 +49,7 @@ def qkv_project(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     """x (B, S, d) -> q (B, S, H, hd), k and v (B, S, KV, hd). With
     ``qk_norm`` q and k are RMS-normalised over hd before RoPE
     (``repro/models/attention.py:49-51``)."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = head_project(x, p["wq"]), head_project(x, p["wk"]), head_project(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -76,11 +76,14 @@ def prefix_lengths(valid: torch.Tensor) -> torch.Tensor:
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: int = 0,
+                      causal: bool = True, window: int = 0,
                       kv_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal prefill attention, (B, S, H, hd); ``window`` > 0 limits each
-    query to the last ``window`` keys."""
-    return ops.flash_attention(q, k, v, causal=True, window=window,
+    """Prefill attention through the flash kernel: q (B, Sq, H, hd) against
+    k/v (B, Skv, KV, hd) -> (B, Sq, H, hd). Causal for a decoder's
+    self-attention (Sq = Skv), where ``window`` > 0 limits each query to the
+    last ``window`` keys; ``causal=False`` for an encoder (Sq = Skv) and for
+    cross-attention over the encoder's keys (Sq != Skv)."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
                                kv_lengths=kv_lengths)
 
 
@@ -115,13 +118,15 @@ def _pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      window: int = 0) -> torch.Tensor:
-    """Causal online-softmax attention over blocks of ``BLOCK`` keys, q (B, S,
-    H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd); ``window`` > 0 keeps the
-    keys with q - k < window. The counterpart of
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Online-softmax attention over blocks of keys, q (B, Sq, H, hd), k/v
+    (B, Skv, KV, hd) -> (B, Sq, H, hd): causal (Sq = Skv), where ``window``
+    > 0 keeps the keys with q - k < window, or with ``causal=False`` every
+    key (an encoder, and cross-attention, Sq != Skv). The counterpart of
     ``repro/models/attention.py:72-171`` at the arguments the training
-    forward gives it (causal, a layer's window, no key mask, the default
-    blocks), step for step (fp32 scores and accumulators, masked scores at
+    forwards give it (no key mask, the default blocks of ``min(512, Sq)``
+    queries and ``min(512, Skv)`` keys, the padded keys of the last block
+    masked), step for step (fp32 scores and accumulators, masked scores at
     -1e30, the output rounded once to ``v``'s dtype). Key blocks that every
     row of a query block masks are skipped, on both sides of the band. Past
     the diagonal the reference's update multiplies by exp(0) and adds
@@ -130,30 +135,35 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with alpha = exp(-1e30 - m) = 0 and wipes what those blocks added, so
     starting after them gives the same numbers. Plain PyTorch, so autograd
     differentiates it."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
-    blk = min(BLOCK, S)
-    q, k, v = _pad_to(q, blk), _pad_to(k, blk), _pad_to(v, blk)
-    pos = torch.arange(q.shape[1], device=q.device)
+    bq, bk = min(BLOCK, Sq), min(BLOCK, Skv)
+    q, k, v = _pad_to(q, bq), _pad_to(k, bk), _pad_to(v, bk)
+    qpos = torch.arange(q.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
     f32 = torch.float32
     outs = []
-    for i in range(q.shape[1] // blk):
-        rows = slice(i * blk, (i + 1) * blk)
-        qc = q[:, rows].reshape(B, blk, KV, G, hd).to(f32)
-        m = torch.full((B, KV, G, blk), NEG_INF, dtype=f32, device=q.device)
-        l = torch.zeros((B, KV, G, blk), dtype=f32, device=q.device)
-        acc = torch.zeros((B, KV, G, blk, hd), dtype=f32, device=q.device)
-        for j in range(i + 1):
-            if window and i * blk - ((j + 1) * blk - 1) >= window:
+    for i in range(q.shape[1] // bq):
+        rows = slice(i * bq, (i + 1) * bq)
+        qc = q[:, rows].reshape(B, bq, KV, G, hd).to(f32)
+        m = torch.full((B, KV, G, bq), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((B, KV, G, bq), dtype=f32, device=q.device)
+        acc = torch.zeros((B, KV, G, bq, hd), dtype=f32, device=q.device)
+        for j in range(k.shape[1] // bk):
+            if causal and j * bk > (i + 1) * bq - 1:
+                break                 # past the diagonal of every row of the block
+            if window and i * bq - ((j + 1) * bk - 1) >= window:
                 continue              # before the window of every row of the block
-            cols = slice(j * blk, (j + 1) * blk)
+            cols = slice(j * bk, (j + 1) * bk)
             vb = v[:, cols]
             s = torch.einsum("bqkgh,bskh->bkgqs", qc, k[:, cols].to(f32)) * scale
-            mask = pos[cols][None, :] <= pos[rows][:, None]
+            mask = (kpos[cols] < Skv)[None, :].expand(bq, bk)
+            if causal:
+                mask = mask & (kpos[cols][None, :] <= qpos[rows][:, None])
             if window:
-                mask = mask & (pos[rows][:, None] - pos[cols][None, :] < window)
+                mask = mask & (qpos[rows][:, None] - kpos[cols][None, :] < window)
             s = torch.where(mask, s, torch.full((), NEG_INF, dtype=f32, device=q.device))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -162,7 +172,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * alpha[..., None] + torch.einsum(
                 "bkgqs,bskh->bkgqh", p.to(vb.dtype).to(f32), vb.to(f32))
             m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])   # (B, KV, G, blk, hd)
-    out = torch.stack(outs, dim=1)                                 # (B, nq, KV, G, blk, hd)
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])   # (B, KV, G, bq, hd)
+    out = torch.stack(outs, dim=1)                                 # (B, nq, KV, G, bq, hd)
     out = torch.movedim(out, -2, 2).reshape(B, -1, KV * G, hd)
-    return out[:, :S].to(v.dtype)
+    return out[:, :Sq].to(v.dtype)

@@ -6,7 +6,9 @@ stacks the blocks of each segment on a leading ``layers`` axis
 (``repro/models/transformer.py:119-132``) under ``segments[i]["layer_j"]``;
 the port keeps one dict per layer, in execution order (block by block, each
 block's layers in turn). A hybrid's ``shared_attn`` layers are empty dicts in
-both trees, and the weight-shared block is carried as ``shared``. Tensor
+both trees, and the weight-shared block is carried as ``shared``. An
+encoder-decoder's stacked ``encoder`` and ``decoder`` trees
+(``repro/models/encdec.py:52-59``) become lists of per-layer dicts. Tensor
 layouts are the reference's (``wq`` is (d, H, hd), ``wo`` is (H, hd, d)).
 """
 
@@ -37,6 +39,11 @@ def _map(tree: Any, fn) -> Any:
     return fn(tree)
 
 
+def _unstack(tree: Dict[str, Any], n: int, conv) -> List[Dict[str, Any]]:
+    """A tree stacked on a leading axis of ``n`` layers -> one tree a layer."""
+    return [_map(tree, lambda a: conv(np.asarray(a)[i])) for i in range(n)]
+
+
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                     device: DeviceLike = None) -> Dict[str, Any]:
     """Reference param pytree (numpy leaves) -> the port's params, in the
@@ -44,6 +51,12 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     conv = lambda a: _tensor(a, dt, dev)
+    if cfg.family == "encdec":
+        return {"embed": conv(tree["embed"]),
+                "encoder": _unstack(tree["encoder"], cfg.n_encoder_layers, conv),
+                "enc_final_ln": _map(tree["enc_final_ln"], conv),
+                "decoder": _unstack(tree["decoder"], cfg.n_layers, conv),
+                "dec_final_ln": _map(tree["dec_final_ln"], conv)}
     out: Dict[str, Any] = {"embed": conv(tree["embed"]),
                            "final_norm": conv(tree["final_norm"])}
     if "head" in tree:
@@ -53,9 +66,9 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
         names = sorted(seg, key=lambda s: int(s.split("_")[1]))
         # a shared_attn layer is an empty dict: count blocks on another
         n_blocks = next(np.asarray(seg[n]["ln1"]).shape[0] for n in names if seg[n])
+        blocks = {name: _unstack(seg[name], n_blocks, conv) for name in names}
         for i in range(n_blocks):
-            for name in names:
-                layers.append(_map(seg[name], lambda a: conv(np.asarray(a)[i])))
+            layers.extend(blocks[name][i] for name in names)
     kinds = layer_kinds(cfg)
     if [not lp for lp in layers] != [k == "shared_attn" for k in kinds]:
         raise ValueError(f"tree's layers do not follow {cfg.name}'s plan "

@@ -4,8 +4,8 @@ A model is described once as a tree of :class:`ParamSpec` leaves (shape +
 initialiser), as in ``repro.models.layers``; ``init_tree`` materialises it
 from a seeded ``torch.Generator`` with the reference's scales: normal with
 std 1/sqrt(fan_in), fan_in = ``shape[-2]`` (the last dim for vectors), or
-an explicit ``scale``; embeddings normal with std 0.02; norm scales zero;
-``ones`` for the SSM's skip ``D``. The draws differ from
+an explicit ``scale``; embeddings normal with std 0.02; RMS norm scales
+zero; ``ones`` for the SSM's skip ``D`` and the LayerNorm scales. The draws differ from
 ``jax.random``'s, so parity tests carry the reference's weights across
 (``models/convert.py``).
 """
@@ -57,21 +57,45 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def mlp_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
-    """A gated MLP's weights, the same for either gate."""
-    return {"w_gate": ParamSpec((d_model, d_ff)),
-            "w_up": ParamSpec((d_model, d_ff)),
-            "w_down": ParamSpec((d_ff, d_model))}
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (biased variance), rounded once to x's
+    dtype (``repro/models/layers.py:91-99``)."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32) + bias.to(torch.float32)
+    return out.to(x.dtype)
 
 
-# the gate of a gated MLP: SiLU, or GELU in its tanh form, which is
-# jax.nn.gelu's default (approximate=True) and so the reference's gelu_gated
-GATES = {"silu": F.silu, "gelu_gated": lambda x: F.gelu(x, approximate="tanh")}
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form: jax.nn.gelu's default (approximate=True), and so
+    the reference's ``gelu`` and ``gelu_gated``."""
+    return F.gelu(x, approximate="tanh")
+
+
+# the activation of each MLP: the gate of a gated MLP (silu, gelu_gated), or
+# the one activation of the plain two-matrix MLP (gelu, Whisper's)
+ACTS = {"silu": F.silu, "gelu_gated": _gelu, "gelu": _gelu}
+GATED = ("silu", "gelu_gated")
+
+
+def mlp_spec(d_model: int, d_ff: int, act: str) -> Dict[str, ParamSpec]:
+    """A gated MLP's three matrices, or the plain MLP's two (act="gelu")."""
+    spec = {"w_up": ParamSpec((d_model, d_ff)), "w_down": ParamSpec((d_ff, d_model))}
+    if act in GATED:
+        spec = {"w_gate": ParamSpec((d_model, d_ff)), **spec}
+    return spec
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Tensor:
-    """Gated MLP: act(x W_gate) * (x W_up), then W_down."""
-    return (GATES[act](x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """Gated MLP: act(x W_gate) * (x W_up), then W_down; the plain MLP:
+    act(x W_up), then W_down."""
+    if "w_gate" in p:
+        h = ACTS[act](x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = ACTS[act](x @ p["w_up"])
+    return h @ p["w_down"]
 
 
 def embed_spec(vocab: int, d_model: int) -> ParamSpec:

@@ -10,6 +10,12 @@ mode) are read by nothing: the kernels choose their own tiles and always skip
 fully masked tiles, and the port runs on one device.
 The ProD predictor head consumes ``hidden`` from prefill: the served model's
 last-layer hidden state of the last prompt token (paper §2.4).
+
+An encoder-decoder (``family="encdec"``, Whisper) dispatches to
+``models/encdec.py``: ``prefill`` takes its encoder input as
+``enc_embeds``, and ``loss`` as ``batch["enc_embeds"]``; its cache is a
+per-decoder-layer list of {"k", "v", "ck", "cv"}. A VLM's prefill and
+loss take ``embeds`` and (3, B, S) ``positions`` in place of tokens.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import init_tree, unembed
 
 
@@ -40,7 +46,13 @@ class Model:
     def dtype(self) -> torch.dtype:
         return torch_dtype(self.cfg.dtype)
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.cfg.family == "encdec"
+
     def spec(self):
+        if self.is_encdec:
+            return encdec.whisper_spec(self.cfg)
         return transformer.model_spec(self.cfg)
 
     def init(self, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
@@ -51,39 +63,64 @@ class Model:
 
     def loss(self, params, batch: Dict[str, torch.Tensor], remat: str = "none"):
         """Training objective: next-token CE over ``batch["tokens"]``, masked
-        by ``batch["loss_mask"]`` if present, plus the MoE router loss.
+        by ``batch["loss_mask"]`` if present, plus the MoE router loss (an
+        encoder-decoder: given ``batch["enc_embeds"]``; a VLM: over
+        ``batch["embeds"]`` at ``batch["positions"]`` where given).
         ``remat="full"`` recomputes each layer in the backward pass. Returns
-        (loss, {"loss": the CE, "aux": the router loss})."""
+        (loss, {"loss": the CE, "aux": the router loss}; an encoder-decoder
+        has no "aux")."""
+        if self.is_encdec:
+            return encdec.whisper_loss(params, self.cfg, batch["tokens"], batch["enc_embeds"],
+                                       loss_mask=batch.get("loss_mask"))
         return transformer.lm_loss(params, self.cfg, batch["tokens"],
                                    loss_mask=batch.get("loss_mask"),
                                    remat=remat == "full",
-                                   capacity_factor=self.capacity_factor)
+                                   capacity_factor=self.capacity_factor,
+                                   embeds=batch.get("embeds"),
+                                   positions=batch.get("positions"))
 
-    def prefill(self, params, tokens: torch.Tensor,
-                attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all"):
+    def prefill(self, params, tokens: Optional[torch.Tensor] = None,
+                attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all",
+                enc_embeds: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None):
         """Returns (logits, hidden (B, S, d), the per-layer cache: (k, v) for
-        attention layers, {"h", "conv"} for SSM layers)."""
+        attention layers, {"h", "conv"} for SSM layers; an encoder-decoder's
+        {"k", "v", "ck", "cv"}). An encoder-decoder encodes ``enc_embeds``
+        (B, encoder_seq, d) and decodes ``tokens``; a VLM may take
+        ``embeds`` and ``positions`` in place of tokens."""
+        if self.is_encdec:
+            enc_out = encdec.encode(params, self.cfg, enc_embeds)
+            return encdec.decoder_forward(params, self.cfg, tokens, enc_out,
+                                          attn_valid=attn_valid, logits_mode=logits_mode)
         return transformer.forward(params, self.cfg, tokens, attn_valid=attn_valid,
                                    logits_mode=logits_mode,
-                                   capacity_factor=self.capacity_factor)
+                                   capacity_factor=self.capacity_factor,
+                                   embeds=embeds, positions=positions)
 
-    def decode_step(self, params, tokens, cache, pos, lengths):
-        """tokens, pos (B,), lengths (B,) int32. Returns (logits, hidden),
-        writes the new K/V into ``cache`` and replaces its SSM states."""
+    def decode_step(self, params, tokens, cache, pos, lengths, embeds=None):
+        """tokens, pos (B,), lengths (B,) int32 (or a VLM's ``embeds`` (B, d)
+        for the tokens). Returns (logits, hidden), writes the new K/V into
+        ``cache`` and replaces its SSM states."""
+        if self.is_encdec:
+            return encdec.decoder_decode_step(params, self.cfg, tokens, cache, pos, lengths)
         return transformer.decode_step(params, self.cfg, tokens, cache, pos, lengths,
-                                       capacity_factor=self.capacity_factor)
+                                       capacity_factor=self.capacity_factor, embeds=embeds)
 
     def unembed(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden, params["embed"], params.get("head"))
 
     def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None):
-        return transformer.init_cache(self.cfg, batch, cache_len, self.dtype,
-                                      resolve_device(device))
+        init = encdec.init_cache if self.is_encdec else transformer.init_cache
+        return init(self.cfg, batch, cache_len, self.dtype, resolve_device(device))
 
     def decode_cache(self, prefill_cache, cache_len: int):
         """The cache ``prefill`` returned, made a decode cache of
         ``cache_len`` positions: full K/V grown to it, a windowed layer's
-        K/V a ring of its window once ``cache_len`` outgrows it."""
+        K/V a ring of its window once ``cache_len`` outgrows it, an
+        encoder-decoder's cross K/V kept as they are."""
+        if self.is_encdec:
+            return encdec.decode_cache(prefill_cache, cache_len)
         return transformer.decode_cache(self.cfg, prefill_cache, cache_len)
 
 

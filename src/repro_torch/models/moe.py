@@ -43,7 +43,7 @@ def moe_spec(cfg: ModelConfig) -> Dict[str, object]:
         "w_down": ParamSpec((E, f, d)),
     }
     if cfg.n_shared_experts:
-        s["shared"] = mlp_spec(d, cfg.moe_d_ff * cfg.n_shared_experts)
+        s["shared"] = mlp_spec(d, cfg.moe_d_ff * cfg.n_shared_experts, "silu")
     return s
 
 

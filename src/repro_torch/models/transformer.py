@@ -1,11 +1,11 @@
-"""Decoder-only models of the dense, MoE, SSM and hybrid families: prefill
-and cached decode; the training forward and its next-token loss (dense and
-MoE).
+"""Decoder-only models of the dense, VLM, MoE, SSM and hybrid families:
+prefill and cached decode; the training forward and its next-token loss
+(dense, VLM and MoE). The encoder-decoder family is ``models/encdec.py``.
 
 Architectures follow the reference's *layer plan*: a list of segments, each
 a ``(kinds, n_blocks)`` pair (``repro/models/transformer.py:58-82``):
 
-* uniform dense:   [ (('full',), L) ]
+* uniform dense:   [ (('full',), L) ]   (a VLM's language model too)
 * dense, windowed: [ (('local',), L) ]
 * gemma3 5:1:      [ (('local',)*5 + ('full',), L//6), (('local',)*(L%6), 1) ]
 * MoE:             [ (('moe',), L) ]
@@ -46,9 +46,21 @@ many ``local`` layers and one ``full`` one, the rest ``local``),
 attention and ``models/moe.py``'s capacity-dispatched experts in place of
 the MLP (``_apply_ffn``, the reference's ``transformer.py:197-207``); the
 serving passes drop its router loss, the training forward sums it over the
-layers and ``lm_loss`` adds ``router_aux_coef`` times it. M-RoPE and the
-plain two-matrix MLP raise ``NotImplementedError`` until their slices
-(ROADMAP.md); the int8 KV cache has no switch in the port yet.
+layers and ``lm_loss`` adds ``router_aux_coef`` times it. The MLP is the
+config's ``act``: gated (``silu``, ``gelu_gated``) or the plain two-matrix
+``gelu`` (``layers.mlp_apply``); the hybrid's shared block is gated SiLU
+whatever the config says, as the reference's. The int8 KV cache has no
+switch in the port yet.
+
+Qwen2-VL (family ``vlm``): M-RoPE (``use_mrope``: three position streams
+drive three sections of the rotary bands, ``models/rope.py``), and the
+``embeds=`` / ``positions=`` input of :func:`forward`, :func:`decode_step`,
+:func:`train_forward` and :func:`lm_loss`, which the stub vision tower
+feeds (``models/frontend.py::vlm_embeds``). Without them, tokens are
+embedded and the three streams are the text positions, where M-RoPE is RoPE.
+A decode step gives its position to all three streams, as the reference's
+(``repro/models/transformer.py:453-456``): after patches the first decoded
+position is the prompt's length S, not the text's next id.
 
 The training forward (:func:`train_forward`, :func:`lm_loss`) runs the
 layers with :func:`attention.blocked_attention` in plain PyTorch, causal
@@ -71,26 +83,26 @@ import torch.utils.checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (GATES, ParamSpec, embed_spec, mlp_apply,
+from repro_torch.models.layers import (ACTS, ParamSpec, embed_spec, mlp_apply,
                                        mlp_spec, rms_norm, unembed)
 from repro_torch.models.moe import moe_apply, moe_spec
-from repro_torch.models.rope import angles_by_base, positions_from_tokens
+from repro_torch.models.rope import (angles_by_base, positions_from_tokens,
+                                     text_mrope_positions)
 
 Entry = Union[Tuple[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 Cache = List[Entry]
 
 
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    unsupported = {
-        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid"),
-        "use_mrope": cfg.use_mrope,
-        "act (the plain two-matrix MLP: Whisper's encdec slice)": cfg.act not in GATES,
-    }
-    missing = [k for k, bad in unsupported.items() if bad]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet — the port serves "
-            f"the dense, moe, ssm and hybrid families (see ROADMAP.md, queue 1)")
+    """Raise for a family or an MLP activation the reference has no model
+    for."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (one of {FAMILIES})")
+    if cfg.act not in ACTS:
+        raise ValueError(f"{cfg.name}: unknown act {cfg.act!r} (one of {tuple(ACTS)})")
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +118,7 @@ class Segment:
 
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
     L = cfg.n_layers
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         if cfg.local_global_ratio > 0:
             blk = ("local",) * cfg.local_global_ratio + ("full",)
             segs = []
@@ -142,9 +154,10 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 def _angles(cfg: ModelConfig, kinds: List[str], positions: torch.Tensor):
-    """kind -> its rope angle table (None for SSM layers)."""
+    """kind -> its rope angle table (None for SSM layers); ``positions`` (B,
+    S), or (3, B, S) with M-RoPE."""
     table = angles_by_base(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_theta_local,
-                           kinds)
+                           kinds, use_mrope=cfg.use_mrope)
     return lambda kind: (None if kind == "ssm" else
                          table["local" if kind == "local" else "global"])
 
@@ -158,15 +171,16 @@ def _norm(cfg: ModelConfig) -> ParamSpec:
     return ParamSpec((cfg.d_model,), init="zeros")
 
 
-def shared_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    """Attention + gated MLP: Zamba2's shared block, and a dense layer."""
+def shared_block_spec(cfg: ModelConfig, act: str = "silu") -> Dict[str, Any]:
+    """Attention + MLP: Zamba2's shared block (gated SiLU, whatever the
+    config's act), and a dense layer (the config's act)."""
     return {"ln1": _norm(cfg), "attn": attn.attn_spec(cfg), "ln2": _norm(cfg),
-            "mlp": mlp_spec(cfg.d_model, cfg.d_ff)}
+            "mlp": mlp_spec(cfg.d_model, cfg.d_ff, act)}
 
 
 def _layer_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     if kind in ("full", "local"):
-        return shared_block_spec(cfg)
+        return shared_block_spec(cfg, cfg.act)
     if kind == "moe":
         return {"ln1": _norm(cfg), "attn": attn.attn_spec(cfg), "ln2": _norm(cfg),
                 "moe": moe_spec(cfg)}
@@ -207,18 +221,32 @@ def _has_attention(kinds: List[str]) -> bool:
     return any(k != "ssm" for k in kinds)
 
 
-def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
+def _inputs(params, cfg: ModelConfig, tokens, embeds, positions):
+    """The first layer's input (B, S, d) and the rope positions: ``embeds``
+    as given or the tokens' embeddings; ``positions`` as given or the text
+    positions ((3, B, S) with M-RoPE)."""
+    x = params["embed"][tokens] if embeds is None else embeds
+    if positions is None:
+        B, S = x.shape[:2]
+        make = text_mrope_positions if cfg.use_mrope else positions_from_tokens
+        positions = make(B, S, device=x.device)
+    return x, positions
+
+
+def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
             attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all",
-            capacity_factor: float = 1.25):
-    """Prefill pass over (B, S) tokens. ``attn_valid`` (B, S) marks the valid
-    (right-padded) prompt positions; a MoE layer routes every position, pads
-    included, with ``capacity_factor``. Returns (logits (B, S, V) fp32 or
-    None with ``logits_mode="none"``, hidden (B, S, d), the per-layer
-    cache)."""
-    B, S = tokens.shape
+            capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None):
+    """Prefill pass over (B, S) tokens, or over ``embeds`` (B, S, d) in the
+    model dtype (the VLM's patch + text embeddings) at ``positions`` ((B, S),
+    or (3, B, S) with M-RoPE; the text positions when None). ``attn_valid``
+    (B, S) marks the valid (right-padded) prompt positions; a MoE layer
+    routes every position, pads included, with ``capacity_factor``. Returns
+    (logits (B, S, V) fp32 or None with ``logits_mode="none"``, hidden (B,
+    S, d), the per-layer cache)."""
     kinds = layer_kinds(cfg)
-    x = params["embed"][tokens]
-    angles = _angles(cfg, kinds, positions_from_tokens(B, S, device=tokens.device))
+    x, positions = _inputs(params, cfg, tokens, embeds, positions)
+    angles = _angles(cfg, kinds, positions)
     kv_lengths = None
     if _has_attention(kinds) and attn_valid is not None:
         kv_lengths = attn.prefix_lengths(attn_valid)
@@ -305,19 +333,27 @@ def decode_cache(cfg: ModelConfig, prefill_cache: Cache, cache_len: int) -> Cach
     return out
 
 
-def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
+def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch.Tensor],
                 cache: Cache, pos: torch.Tensor, lengths: torch.Tensor,
-                capacity_factor: float = 1.25):
-    """One decode step for (B,) new tokens at positions ``pos`` (B,);
-    ``lengths`` (B,) int32 is each row's valid cache length AFTER this token.
-    Writes the new K/V into ``cache`` in place (at ``pos % window`` in a
-    ring, attending to ``min(lengths, window)`` slots there) and replaces its
-    SSM states. Returns (logits (B, V) fp32, hidden (B, d))."""
-    B = tokens.shape[0]
+                capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None):
+    """One decode step for (B,) new tokens, or their ``embeds`` ((B, d) or
+    (B, 1, d)), at positions ``pos`` (B,), which M-RoPE gives to all three
+    streams; ``lengths`` (B,) int32 is each row's valid cache length AFTER
+    this token. Writes the new K/V into ``cache`` in place (at ``pos %
+    window`` in a ring, attending to ``min(lengths, window)`` slots there)
+    and replaces its SSM states. Returns (logits (B, V) fp32, hidden (B,
+    d))."""
+    B = pos.shape[0]
     kinds = layer_kinds(cfg)
-    x = params["embed"][tokens][:, None]                        # (B, 1, d)
-    angles = _angles(cfg, kinds, pos[:, None])
-    bidx = torch.arange(B, device=tokens.device)
+    if embeds is None:
+        x = params["embed"][tokens][:, None]                    # (B, 1, d)
+    else:
+        x = embeds[:, None] if embeds.ndim == 2 else embeds
+    positions = pos[:, None]
+    if cfg.use_mrope:
+        positions = positions[None].expand(3, B, 1)
+    angles = _angles(cfg, kinds, positions)
+    bidx = torch.arange(B, device=pos.device)
     slot = pos.to(torch.long)
     W = cfg.attn_window
     # where a ring of W slots writes and how many it attends to: once a step
@@ -356,8 +392,14 @@ def _train_layer(p, x, cfg: ModelConfig, angles, window: int, capacity_factor: f
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config whose training forward is not ported yet: SSM
-    layers (and so the hybrid's shared block, which only Zamba2 has)."""
+    """Raise for a config that the token-only trainer cannot train: an
+    encoder-decoder, whose loss needs the encoder's input (``Model.loss``
+    takes it as ``batch["enc_embeds"]``), and SSM layers (and so the
+    hybrid's shared block, which only Zamba2 has), whose training forward is
+    not ported yet."""
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: an encoder-decoder trains on batches with "
+                         f"enc_embeds (Model.loss); the token pipeline has none")
     kinds = layer_kinds(cfg)
     if any(kind not in ("full", "local", "moe") for kind in kinds):
         raise NotImplementedError(
@@ -366,18 +408,20 @@ def check_trainable(cfg: ModelConfig) -> None:
             f"(ROADMAP.md, queue 1 item 11)")
 
 
-def train_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-                  remat: bool = False, capacity_factor: float = 1.25):
-    """Full-sequence causal pass for training, differentiable by autograd.
+def train_forward(params: Dict[str, Any], cfg: ModelConfig,
+                  tokens: Optional[torch.Tensor] = None, remat: bool = False,
+                  capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None,
+                  positions: Optional[torch.Tensor] = None):
+    """Full-sequence causal pass for training, differentiable by autograd,
+    over tokens or ``embeds`` at ``positions`` (as :func:`forward`).
     Returns (logits (B, S, V) fp32, hidden (B, S, d), the layers' summed
     router loss (fp32; 0 without MoE layers)). With ``remat`` each layer
     keeps only its input and is recomputed in the backward pass."""
     check_trainable(cfg)
-    B, S = tokens.shape
     kinds = layer_kinds(cfg)
-    x = params["embed"][tokens]
-    angles = _angles(cfg, kinds, positions_from_tokens(B, S, device=tokens.device))
-    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x, positions = _inputs(params, cfg, tokens, embeds, positions)
+    angles = _angles(cfg, kinds, positions)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp in zip(kinds, params["layers"]):
         args = (lp, x, cfg, angles(kind), _window(cfg, kind), capacity_factor)
         if remat:
@@ -393,13 +437,16 @@ def train_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor
 
 def lm_loss(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             loss_mask: Optional[torch.Tensor] = None, remat: bool = False,
-            capacity_factor: float = 1.25):
-    """Next-token cross-entropy, the mean over ``loss_mask[:, 1:]`` where a
+            capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None):
+    """Next-token cross-entropy of ``tokens`` (the targets, also the input
+    unless ``embeds`` is given), the mean over ``loss_mask[:, 1:]`` where a
     mask is given, plus ``router_aux_coef`` times the MoE layers' router
     loss. Returns (that total, {"loss": the cross-entropy, "aux": the router
     loss}), as the reference's ``lm_loss`` (``transformer.py:506-520``)."""
     logits, _, aux = train_forward(params, cfg, tokens, remat=remat,
-                                   capacity_factor=capacity_factor)
+                                   capacity_factor=capacity_factor, embeds=embeds,
+                                   positions=positions)
     targets = tokens[:, 1:].to(torch.long)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]

@@ -1320,12 +1320,27 @@ class SimEngine:
 # ---------------------------------------------------------------------------
 
 
+def check_token_only(cfg) -> None:
+    """Raise for an encoder-decoder: :class:`RealEngine` feeds a model its
+    prompt tokens only, as the reference's does (``repro/serving/engine.py:
+    1343-1346``), and an encoder-decoder's prefill also needs its encoder
+    input (``Model.prefill(..., enc_embeds=)``), which the reference's engine
+    fails on with a KeyError. Drive one through ``Model.prefill`` and
+    ``Model.decode_step`` instead (``chip_smoke.py::whisper_phase``)."""
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: RealEngine serves token-only models; an "
+                         f"encoder-decoder also needs its encoder input (enc_embeds), "
+                         f"which the engine does not take")
+
+
 class RealEngine:
     """Batched sampling engine: prefill once, decode until EOS, harvest
-    last-token hidden states for the ProD predictor."""
+    last-token hidden states for the ProD predictor. A VLM is served on its
+    text tokens, where its three M-RoPE streams are equal."""
 
     def __init__(self, model, params, temperature: float = 0.8,
                  max_new: int = 256, eos_id: int = 2):
+        check_token_only(model.cfg)
         self.model = model
         self.params = params
         self.temp = temperature

@@ -141,10 +141,10 @@ def test_gelu_gate_is_the_tanh_form():
     The erf form is another function: on the reduced model's MLP (d 256,
     d_ff 512, weights at the init scales, unit-RMS input, as after the
     norm) it misses the model tolerance, 1e-4 of the output's scale. SiLU
-    stays SiLU, and a model with the plain two-matrix MLP raises, naming
-    its slice."""
+    stays SiLU, and the plain two-matrix MLP (act="gelu", Whisper's) takes
+    the same tanh form, as the reference's, with no gate matrix."""
     x = np.linspace(-6, 6, 1001, dtype=np.float32)
-    got = layers.GATES["gelu_gated"](torch.from_numpy(x))
+    got = layers.ACTS["gelu_gated"](torch.from_numpy(x))
     close(got, jax.nn.gelu(jnp.asarray(x)), rtol=1e-6, atol=1e-6)
     rng = np.random.default_rng(0)
     p = {k: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
@@ -158,8 +158,12 @@ def test_gelu_gate_is_the_tanh_form():
                                         jnp.asarray(h), "gelu_gated"))
     erf = (torch.nn.functional.gelu(th @ tp["w_gate"]) * (th @ tp["w_up"])) @ tp["w_down"]
     assert float(np.abs(erf.numpy() - want).max()) > 1e-4 * float(np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="encdec"):
-        build_model(get_config("tiny-lm").with_overrides(act="gelu"))
+    plain = {k: p[k] for k in ("w_up", "w_down")}
+    near(layers.mlp_apply({k: torch.from_numpy(v) for k, v in plain.items()}, th, "gelu"),
+         jlayers.mlp_apply({k: jnp.asarray(v) for k, v in plain.items()}, jnp.asarray(h),
+                           "gelu"))
+    assert "w_gate" not in build_model(get_config("tiny-lm").with_overrides(act="gelu")).spec()[
+        "layers"][0]["mlp"]
 
 
 # --------------------------------------------------------------------------

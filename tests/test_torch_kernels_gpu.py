@@ -134,6 +134,39 @@ def test_flash_attention_bf16_kernel_vs_plain(case):
     close(got, want, BF16)
 
 
+# Whisper-large-v3 (20 heads of 64, MHA) and Qwen2-VL-2B (12 on 2 of 128,
+# G=6): (B, Sq, Skv, H, KV, hd, causal, key lengths, dtype)
+FLASH_ENCDEC_VLM_CASES = {
+    # cross-attention: 224 prompt rows (the last query tile holds 96) against
+    # the 1,500 encoder keys (the last key tile holds 92), every key valid
+    "whisper-cross": (2, 224, 1500, 20, 20, 64, False, None, BF16),
+    # the encoder: bidirectional over its 1,500 frames
+    "whisper-encoder": (2, 1500, 1500, 20, 20, 64, False, None, BF16),
+    # cross shapes the kernel's edges meet: one query row, a query tile and
+    # one row, ragged key lengths, and the SIMT kernel (fp32)
+    "cross-Sq1": (2, 1, 1500, 20, 20, 64, False, None, BF16),
+    "cross-Sq129-ragged": (2, 129, 700, 8, 2, 128, False, [700, 93], BF16),
+    "cross-fp32": (2, 77, 300, 4, 4, 64, False, [300, 33], F32),
+    "qwen2vl-serve-G6": (2, 512, 512, 12, 2, 128, True, [512, 1], BF16),
+    "qwen2vl-G6-ragged": (2, 512, 512, 12, 2, 128, True, [300, 257], BF16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FLASH_ENCDEC_VLM_CASES))
+def test_flash_attention_encdec_and_vlm_shapes(case):
+    """Non-causal flash over a key set of another length (Whisper's
+    cross-attention and encoder) and Qwen2-VL's G=6, against the plain
+    version; a second call bit-identical."""
+    dev = cuda_device()
+    B, Sq, Skv, H, KV, hd, causal, lens, dtype = FLASH_ENCDEC_VLM_CASES[case]
+    q, k, v = _qkv(11, (B, Sq, H, hd), (B, Skv, KV, hd), dtype, dev)
+    lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = ops.flash_attention(q, k, v, causal=causal, kv_lengths=lens)
+    close(got, ref.flash_attention_ref(q, k, v, causal=causal, kv_lengths=lens), dtype)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal, kv_lengths=lens))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("window,lens", [(0, [300, 1]), (17, [300, 5]), (1024, [300, 200])],
@@ -234,6 +267,12 @@ DECODE_CASES = {
     "kimi-serve": (8, 576, 64, 8, 112, SERVE_LENS),
     "kimi-Sc20": (3, 20, 8, 1, 112, [20, 1, 13]),
     "qwen3moe-serve-G16": (8, 576, 64, 4, 64, SERVE_LENS),
+    # Whisper-large-v3: its static cross cache of 1,500 frames, every key
+    # valid, and its self cache (Sp=224 + 64); Qwen2-VL-2B's G=6 (a head
+    # tile of 8 holding 6)
+    "whisper-cross": (8, 1500, 20, 20, 64, [1500] * 8),
+    "whisper-self": (8, 288, 20, 20, 64, [288, 97, 245, 161, 276, 128, 214, 193]),
+    "qwen2vl-serve-G6": (8, 576, 12, 2, 128, SERVE_LENS),
 }
 
 

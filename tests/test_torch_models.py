@@ -128,12 +128,31 @@ def test_decode_steps_teacher_forced(models):
         jlen, tlen = jlen + 1, tlen + 1
 
 
-@pytest.mark.parametrize("override", [dict(family="encdec"), dict(use_mrope=True),
-                                      dict(act="gelu")])
-def test_unported_model_features_raise(override):
-    cfg = get_config("tiny-lm").with_overrides(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+@pytest.mark.parametrize("override", [dict(family="encdec", n_encoder_layers=1, encoder_seq=16),
+                                      dict(use_mrope=True), dict(act="gelu")],
+                         ids=["encdec", "use_mrope", "gelu"])
+def test_once_unported_model_features_match_the_reference(override):
+    """tiny-lm as an encoder-decoder, with M-RoPE on text positions, and with
+    the plain two-matrix GELU MLP: each builds in both packages, and the
+    prefill's logits and hidden states agree on ragged prompts."""
+    jcfg = jget_config("tiny-lm").with_overrides(dtype="float32", **override)
+    jm = jbuild_model(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    cfg = get_config("tiny-lm").with_overrides(dtype="float32", **override)
+    m = build_model(cfg)
+    params = from_jax_params(np_tree(jparams), cfg, device="cpu")
+    toks, valid = _prompts()
+    batch = {"tokens": jnp.asarray(toks), "attn_valid": jnp.asarray(valid)}
+    kw = {}
+    if cfg.family == "encdec":
+        frames = (np.random.default_rng(3).standard_normal((len(LENS), 16, cfg.d_model))
+                  * 0.02).astype(np.float32)
+        batch["enc_embeds"], kw["enc_embeds"] = jnp.asarray(frames), torch.from_numpy(frames)
+    jlogits, jhidden, _, _ = jm.prefill(jparams, batch, Runtime.local())
+    logits, hidden, _ = m.prefill(params, torch.from_numpy(toks).long(),
+                                  attn_valid=torch.from_numpy(valid), **kw)
+    near(logits, jlogits)
+    near(hidden, jhidden)
 
 
 def test_model_config_rejects_bad_head_split():
