@@ -132,7 +132,8 @@ script exits non-zero without its result line:
    services' fused batches (plus the hazard grid's one call), no other
    kernel may launch, and each table's ``validate_*`` booleans must equal
    the reference's. One trained-head replay is profiled for the device's
-   busy share;
+   busy share. The phase runs in a child process (``--phase cluster``)
+   beside phases 5-6, which are host-bound too, and is read after them;
 8. train: the trainer (``training/trainer.py``) at Llama-3-8B's published
    widths with the depth cut to 2 layers, fp32: 5 AdamW steps (cosine
    schedule, clipping) on B=8 x 128 tokens of ``data/pipeline.py``. Losses
@@ -142,6 +143,21 @@ script exits non-zero without its result line:
    must be bit-identical; the training forward (blocked attention) must
    give the prefill's logits (flash kernel) within 1e-3 of their scale. No
    kernel may launch on the train path. One more step is profiled;
+   ssm train: the trainer on Mamba2-130M (B=8 x 512, 5 steps) and
+   Zamba2-1.2B (B=4 x 512, 4 steps; its shared block's wq and wk x 0.1) at
+   full width and depth, fp32, the scan in ``ssd_chunked`` at chunk 256:
+   losses and gradients finite, the first batch's loss lower after the
+   steps, no kernel on the train path; the prefill (ssd_scan 24 and 38
+   launches, flash 0 and 6) within 1e-3 of the training forward's logits on
+   the trained weights; steps against ``train_bounds`` (w_in, w_out and the
+   scan counted), peak memory, one step profiled;
+   int8 kv: Llama-3-8B at full width and depth, bf16 (wq, wk x 0.1), B=8,
+   576 slots: 128 teacher-forced decode steps into the plain and the int8
+   KV cache (``init_cache(kv_quant=True)``: int8 K/V and fp32 scales,
+   dequantized for the decode kernel), each step's median logit gap within
+   the reference's gate, the cache under 0.65x the plain one's bytes,
+   decode_attention launched 32 times a step on each; both steps timed and
+   profiled, the dequantizations' share printed;
 9. online: ProD-O on real generations. (a) ``launch/bench_online.py`` at
    seed 0 (tiny-lm trained 150 steps, 48 prompts x 80 tokens with per-step
    states, static and online heads): flash (20), decode and head (2)
@@ -1769,18 +1785,68 @@ def cluster_phase(torch, counters):
     return total
 
 
-def train_bounds(cfg, n_params: int, tokens: int):
+def cluster_child():
+    """Starts phase 7 in a child process of its own (this script with
+    ``--phase cluster``): the cluster tables are the host's NumPy simulator
+    with the head in the loop (0.4% device-busy), so they run on other cores
+    beside the table1, ablations, sim and single phases, which are host-bound
+    too, and the script stays well inside its time limit. The child counts
+    its own launches from 0 and prints them last."""
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "cluster"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def cluster_result(child, t0: float):
+    """Waits for :func:`cluster_child`, prints its output and returns its
+    launches; fails if it failed."""
+    out, _ = child.communicate(timeout=1000)
+    print(out, end="")
+    print(f"cluster: the child process took {time.perf_counter() - t0:.1f} s, beside the "
+          f"table1, ablations, sim and single phases")
+    check(child.returncode == 0, f"cluster: the child process exited {child.returncode}")
+    return json.loads(out.strip().splitlines()[-1])["launches"]
+
+
+def train_bounds(cfg, kinds, n_params: int, B: int, S: int):
     """Least time of one training step: the forward and backward products
-    (6 FLOPs per matrix weight per token; attention scores left out) at the
-    fp32 peak, then AdamW's pass over every parameter (read p, g, m and v,
-    write p, m and v, fp32) at the memory rate. Returns (flops, flops ms,
-    optimizer bytes, bytes ms)."""
+    (6 FLOPs per matrix weight per token: an attention layer's projections
+    and MLP, a Zamba2 shared block's at each of its invocations, an SSM
+    layer's w_in and w_out, the unembedding; attention scores left out) and
+    three times each SSM layer's least scan operations (``ssd_scan_flops``:
+    the forward, and a backward of twice its work), at the fp32 peak; then
+    AdamW's pass over every parameter (read p, g, m and v, write p, m and v,
+    fp32) at the memory rate. Returns (flops, flops ms, optimizer bytes,
+    bytes ms)."""
     d, hd = cfg.d_model, cfg.head_dim
-    layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
-    matmul = cfg.n_layers * layer + d * cfg.vocab_size          # the unembedding
-    flops = 6 * matmul * tokens
+    H, P, N = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    ssm = d * (2 * H * P + 2 * N + H) + H * P * d
+    n_ssm = sum(k == "ssm" for k in kinds)
+    matmul = n_ssm * ssm + (len(kinds) - n_ssm) * attn + d * cfg.vocab_size
+    flops = 6 * matmul * B * S + (3 * n_ssm * ssd_scan_flops(B, S, H, P, N) if n_ssm else 0)
     opt_bytes = 7 * 4 * n_params
     return flops, flops / FP32_FLOPS * 1e3, opt_bytes, opt_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def timed_steps(torch, counters, step_fn, state, it, steps: int):
+    """``steps`` train steps, each on the next batch of ``it`` and timed on
+    the host clock between synchronisations, the launch counts set to 0
+    before them and read after. Returns (state, the first batch, losses,
+    gradient norms, wall ms a step, launches)."""
+    for c in counters.values():
+        c.launches = 0
+    first, losses, norms, walls = None, [], [], []
+    for _ in range(steps):
+        batch = next(it)
+        first = first or batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    return state, first, losses, norms, walls, {k: c.launches for k, c in counters.items()}
 
 
 def train_phase(torch, counters):
@@ -1802,7 +1868,7 @@ def train_phase(torch, counters):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import batch_iterator, make_lm_dataset
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.models.transformer import train_forward
+    from repro_torch.models.transformer import layer_kinds, train_forward
     from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.training.trainer import init_state, make_train_step
 
@@ -1822,21 +1888,10 @@ def train_phase(torch, counters):
     print(f"train: Llama-3-8B widths, {cfg.n_layers} layers, fp32: {n_params / 1e9:.4f}B "
           f"params, initialised with AdamW state in {time.perf_counter() - t0:.1f} s")
     step_fn = make_train_step(model, tcfg)
-
-    for c in counters.values():
-        c.launches = 0
-    losses, walls = [], []
-    for _ in range(steps):
-        batch = next(it)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, met = step_fn(state, batch)
-        torch.cuda.synchronize()
-        walls.append(1e3 * (time.perf_counter() - t0))
-        losses.append(float(met["loss"]))
-    launches = {k: c.launches for k, c in counters.items()}
+    state, _, losses, _, walls, launches = timed_steps(torch, counters, step_fn, state, it,
+                                                       steps)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    flops, flops_ms, opt_bytes, bytes_ms = train_bounds(cfg, n_params, B * S)
+    flops, flops_ms, opt_bytes, bytes_ms = train_bounds(cfg, layer_kinds(cfg), n_params, B, S)
     bound_ms = flops_ms + bytes_ms
     print(f"train: losses {[round(x, 4) for x in losses]}; step wall ms "
           f"{[round(x, 1) for x in walls]}")
@@ -1880,6 +1935,232 @@ def train_phase(torch, counters):
     check(err <= 1e-3 * scale, "train: prefill logits differ from the training forward's")
     # where a step's time goes (two more steps, not counted)
     device_profile(torch, lambda: step_fn(state, batch), "train: one AdamW step")
+    return launches
+
+
+# (name, B, steps) of the SSM train phase: full width and depth, S=512, fp32
+SSM_TRAIN = (("mamba2-130m", 8, 5), ("zamba2-1.2b", 4, 4))
+
+
+def smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def ssm_train_phase(torch, counters):
+    """Phase 8b: the trainer on the SSM and hybrid models at full width and
+    depth, fp32 as the reference's launcher trains: Mamba2-130M (24 layers,
+    d=768, 24 scan heads of 64, state 128, tied 50,280-token vocabulary) on
+    B=8 x 512 tokens for 5 AdamW steps, and Zamba2-1.2B (38 SSM layers, d=2048,
+    64 scan heads of 64, state 64, the shared attention + MLP block 6 times)
+    on B=4 x 512 for 4 steps; the scan is ``models/ssm.py::ssd_chunked`` at
+    the configs' chunk of 256, under autograd. Checks: every loss finite, the
+    first batch's loss after the steps below its loss at the first step (each
+    step sees a new batch, whose own loss varies more than 5 steps move it),
+    every gradient finite (the global norm is), no kernel launched on the
+    train path; then ``Model.prefill`` (the ssd_scan
+    kernel, and for Zamba2 the flash kernel) against the training forward on
+    the trained weights: logits within 1e-3 of their largest magnitude (both
+    fp32; the scan kernel sums chunks of 64, the training scan chunks of
+    256), one scan launch per SSM layer and one flash launch per shared
+    block invocation. Zamba2's shared block starts with wq and wk scaled by
+    0.1: at the reference's init scales (wq's std 1/sqrt(H)) its softmax is
+    near one-hot, where fp32 orders differ most, and there the trained
+    weights' prefill stood 5.9e-3 of max|logit| off the training forward
+    (on the H100 80GB HBM3 at 700 W); the tests hold the hybrid at the same
+    scaling. Step wall times against ``train_bounds``, the peak memory and
+    one profiled step are printed. Returns the prefills'
+    launches (the train path's are all 0)."""
+    import numpy as np
+
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.pytree import tree_size
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_iterator, make_lm_dataset
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import layer_kinds, train_forward
+    from repro_torch.training.trainer import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    card = smi()
+    prefill_launches = {k: 0 for k in counters}
+    for name, B, steps in SSM_TRAIN:
+        cfg = get_config(name).with_overrides(dtype="float32")
+        kinds = layer_kinds(cfg)
+        model = build_model(cfg)
+        S = 512
+        tcfg = TrainConfig(lr=3e-3, schedule="cosine", warmup_steps=1, decay_steps=steps,
+                           remat="none")
+        ds = make_lm_dataset(64, S, seed=0)
+        ds.tokens = np.minimum(ds.tokens, cfg.vocab_size - 1)
+        it = batch_iterator(ds, B, seed=0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_state(model, 0, tcfg, device=dev)
+        if "shared" in state.params:
+            with torch.no_grad():      # the well-conditioned init (docstring)
+                for w in ("wq", "wk"):
+                    state.params["shared"]["attn"][w].mul_(0.1)
+        torch.cuda.synchronize()
+        n_params = tree_size(state.params)
+        print(f"ssm train {name}: {sum(k == 'ssm' for k in kinds)} SSM + "
+              f"{sum(k != 'ssm' for k in kinds)} shared-block layers, d={cfg.d_model}, fp32, "
+              f"chunk {cfg.ssm_chunk}: {n_params / 1e9:.4f}B params, initialised with AdamW "
+              f"state in {time.perf_counter() - t0:.1f} s")
+        step_fn = make_train_step(model, tcfg)
+        state, first, losses, norms, walls, launches = timed_steps(torch, counters, step_fn,
+                                                                   state, it, steps)
+        with torch.no_grad():
+            again = float(model.loss(state.params, first)[1]["loss"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        flops, flops_ms, opt_bytes, bytes_ms = train_bounds(cfg, kinds, n_params, B, S)
+        bound_ms = flops_ms + bytes_ms
+        print(f"ssm train {name}: B={B} S={S}; losses {[round(x, 4) for x in losses]} (each "
+              f"step a new batch; the first batch's after the steps {again:.4f}); grad norms "
+              f"{[round(x, 3) for x in norms]}; step wall ms {[round(x, 1) for x in walls]} "
+              f"({card})")
+        print(f"ssm train {name}: step bound {bound_ms:.1f} ms ({flops / 1e12:.2f} TFLOP at "
+              f"the fp32 peak {flops_ms:.1f} ms, the scan's share "
+              f"{3 * sum(k == 'ssm' for k in kinds) * ssd_scan_flops(B, S, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state) / 1e12:.3f} "
+              f"TFLOP; + AdamW {opt_bytes / 1e9:.1f} GB {bytes_ms:.1f} ms); the steps after "
+              f"the first at {100 * bound_ms / (sum(walls[1:]) / (steps - 1)):.1f}% of it")
+        print(f"ssm train {name}: peak memory {peak:.2f} GB (max_memory_allocated), against "
+              f"params + grads + AdamW m and v {16 * n_params / 1e9:.2f} GB; launches "
+              f"{json.dumps(launches)}")
+        check(all(math.isfinite(x) for x in losses), f"ssm train {name}: a loss is not finite")
+        check(all(math.isfinite(x) for x in norms), f"ssm train {name}: a gradient is not finite")
+        check(again < losses[0],
+              f"ssm train {name}: loss did not fall ({losses[0]} -> {again} on the first batch)")
+        check(all(v == 0 for v in launches.values()),
+              f"ssm train {name}: a kernel launched on the train path")
+
+        params = state.params
+        tokens = next(it)["tokens"]
+        with torch.no_grad():
+            want, _, _ = train_forward(params, cfg, tokens)
+            for c in counters.values():
+                c.launches = 0
+            got, _, _ = model.prefill(params, tokens)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        expect = {"ssd_scan": sum(k == "ssm" for k in kinds),
+                  "flash_attention": sum(k != "ssm" for k in kinds)}
+        print(f"ssm train {name}: prefill (ssd_scan, flash kernels) against the training "
+              f"forward (ssd_chunked, blocked attention) on the trained weights: logits "
+              f"max|err| {err:.4g} at max|logit| {scale:.4g} ({err / scale:.3g} of it; "
+              f"tolerance 1e-3); launches {json.dumps(launches)}")
+        check(err <= 1e-3 * scale, f"ssm train {name}: prefill logits differ from training's")
+        for k, c in launches.items():
+            check(c == expect.get(k, 0), f"ssm train {name}: {k} launched {c} times in the "
+                  f"prefill, expected {expect.get(k, 0)}")
+            prefill_launches[k] += c
+        batch = next(it)
+        device_profile(torch, lambda: step_fn(state, batch), f"ssm train {name}: one AdamW step")
+        del state, params, step_fn, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return prefill_launches
+
+
+def int8_kv_phase(torch, counters):
+    """Phase 8c: the int8 KV cache (``Model.init_cache(kv_quant=True)``) on
+    Llama-3-8B at full width and depth, bf16, B=8, 576 slots: 128 teacher-
+    forced tokens through ``decode_step`` from an empty cache, once into the
+    plain cache and once into the int8 one (the reference's protocol,
+    ``tests/test_perf_variants.py:17``), with every layer's wq and wk scaled
+    by 0.1, as the online phase holds Llama's per-step states: at the init
+    scales the softmaxes are near one-hot and 32 layers amplify the int8
+    rounding (the median gap reached 1.655x the gate there, on the H100
+    80GB HBM3 at 700 W). Checks: at every step the median
+    |logit gap| below 0.1 max|logit| + 0.05 (the reference's gate); the int8
+    cache's bytes below 0.65x the plain one's (``:46``); decode_attention
+    launched once per layer and step on both caches, no other kernel. The
+    two caches' step times (CUDA events, eager), the dequantization's share
+    of the int8 step and one profiled step of each are printed. Returns the
+    launches of the 256 steps."""
+    import numpy as np
+
+    from repro_torch.common.pytree import tree_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.model_zoo import build_model
+
+    dev = torch.device("cuda")
+    card = smi()
+    cfg = get_config("llama3-8b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    with torch.no_grad():              # the well-conditioned init (docstring)
+        for lp in params["layers"]:
+            for w in ("wq", "wk"):
+                lp["attn"][w].mul_(0.1)
+    B, Sc, T = 8, 576, 128
+    caches = {"bf16": model.init_cache(B, Sc, device=dev),
+              "int8": model.init_cache(B, Sc, device=dev, kv_quant=True)}
+    nbytes = {k: model.cache_bytes(B, Sc, kv_quant=(k == "int8")) for k in caches}
+    check(all(tree_bytes(c) == nbytes[k] for k, c in caches.items()),
+          "int8 kv: cache_bytes differs from the cache's tensors")
+    ratio = nbytes["int8"] / nbytes["bf16"]
+    forced = torch.as_tensor(np.random.default_rng(0).integers(3, cfg.vocab_size, (T, B)),
+                             device=dev)
+    for c in counters.values():
+        c.launches = 0
+    gaps, scales = [], []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(T):
+            pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+            lf, _ = model.decode_step(params, forced[t], caches["bf16"], pos, pos + 1)
+            lq, _ = model.decode_step(params, forced[t], caches["int8"], pos, pos + 1)
+            gaps.append((lf.float() - lq.float()).abs().median())
+            scales.append(lf.float().abs().max())
+        gaps, scales = torch.stack(gaps).tolist(), torch.stack(scales).tolist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    share = [g / (0.1 * s + 0.05) for g, s in zip(gaps, scales)]
+    worst = max(share)
+    print(f"int8 kv: Llama-3-8B bf16 (wq, wk x 0.1), B={B}, {Sc} slots, {T} teacher-forced "
+          f"steps on each cache in {wall:.2f} s; median |logit gap| {min(gaps):.4g}-"
+          f"{max(gaps):.4g} at max|logit| {min(scales):.4g}-{max(scales):.4g}, at most "
+          f"{worst:.3f} of the gate at step {share.index(worst)} (steps 0, 31, 63, 127: "
+          f"{[round(share[i], 3) for i in (0, 31, 63, 127)]}) "
+          f"(0.1 max|logit| + 0.05); cache {nbytes['int8'] / 1e6:.2f} MB int8 + scales against "
+          f"{nbytes['bf16'] / 1e6:.2f} MB bf16 ({ratio:.4f}x; gate 0.65); launches "
+          f"{json.dumps(launches)} ({card})")
+    check(worst < 1.0, "int8 kv: a step's logit gap passes the reference's gate")
+    check(ratio < 0.65, f"int8 kv: the int8 cache is {ratio:.4f}x the plain one")
+    check(launches["decode_attention"] == 2 * T * cfg.n_layers,
+          f"int8 kv: decode_attention launched {launches['decode_attention']} times")
+    check(all(v == 0 for k, v in launches.items() if k != "decode_attention"),
+          "int8 kv: a kernel launched off the decode path")
+
+    with torch.no_grad():
+        pos = torch.full((B,), T, dtype=torch.int32, device=dev)
+        nxt = forced[0]
+        steps = {k: (lambda c=c: model.decode_step(params, nxt, c, pos, pos + 1))
+                 for k, c in caches.items()}
+        step_ms = {k: time_ms(torch, f, iters=10, warmup=2) for k, f in steps.items()}
+        quant = [e for e in caches["int8"] if len(e) == 4]
+
+        def dequantize():
+            for k, v, ks, vs in quant:
+                transformer._dequantize(k, ks, torch.bfloat16)
+                transformer._dequantize(v, vs, torch.bfloat16)
+
+        deq_ms = time_ms(torch, dequantize, iters=10, warmup=2)
+        print(f"int8 kv: decode step (B={B}, Sc={Sc}) {step_ms['bf16']:.2f} ms on the bf16 "
+              f"cache, {step_ms['int8']:.2f} ms on the int8 cache, of which the {2 * len(quant)} "
+              f"dequantizations take {deq_ms:.2f} ms ({100 * deq_ms / step_ms['int8']:.1f}%; "
+              f"CUDA events, eager) ({card})")
+        for k, f in steps.items():
+            device_profile(torch, f, f"int8 kv: one decode step on the {k} cache")
+    del params, caches
     return launches
 
 
@@ -2979,10 +3260,7 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(smi())
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -2994,6 +3272,9 @@ def main() -> int:
 
     kernels = {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
                "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
+    if sys.argv[1:] == ["--phase", "cluster"]:          # the child of cluster_child
+        print(json.dumps({"launches": cluster_phase(torch, kernels)}))
+        return 0
     wall, since = {}, [time.perf_counter()]
 
     def mark(phase: str) -> None:
@@ -3030,18 +3311,30 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("whisper-large-v3")
-    by_phase["table1"], t1_rows = table1_phase(torch, kernels)
-    mark("table1")
-    by_phase["ablations"] = ablations_phase(torch, kernels, t1_rows)
-    mark("ablations")
-    by_phase["sim"] = sim_phase(torch, kernels)
-    by_phase["single"] = single_phase(torch, kernels)
-    mark("sim, single")
-    by_phase["cluster"] = cluster_phase(torch, kernels)
-    mark("cluster")
+    t_child, child = time.perf_counter(), cluster_child()
+    try:
+        by_phase["table1"], t1_rows = table1_phase(torch, kernels)
+        mark("table1")
+        by_phase["ablations"] = ablations_phase(torch, kernels, t1_rows)
+        mark("ablations")
+        by_phase["sim"] = sim_phase(torch, kernels)
+        by_phase["single"] = single_phase(torch, kernels)
+        mark("sim, single")
+        by_phase["cluster"] = cluster_result(child, t_child)
+        mark("cluster (the wait for its child)")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
     by_phase["train"] = train_phase(torch, kernels)
     torch.cuda.empty_cache()
     mark("train")
+    by_phase["ssm train"] = ssm_train_phase(torch, kernels)
+    mark("ssm train")
+    by_phase["int8 kv"] = int8_kv_phase(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("int8 kv")
     by_phase["online"] = online_phase(torch, ref, kernels)
     mark("online")
     by_phase["e2e"] = e2e_phase(torch, kernels)

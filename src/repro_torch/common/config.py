@@ -43,8 +43,8 @@ class ModelConfig:
     ssm_state: int = 0               # d_state N
     ssm_heads: int = 0               # number of SSD heads (0 -> derived)
     ssm_head_dim: int = 64           # P
-    ssm_chunk: int = 256             # kept to match the reference's config;
-                                     # never read: the scan picks its own chunk
+    ssm_chunk: int = 256             # the training scan's chunk (models/ssm.py::
+                                     # ssd_chunked); the prefill kernel picks its own
     ssm_conv_width: int = 4
     attn_every: int = 0              # hybrid: apply shared attn block every k ssm layers
 

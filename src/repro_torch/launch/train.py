@@ -1,14 +1,15 @@
 """Training launcher of the port (the reference's ``repro/launch/train.py``).
 
-Trains a ported dense config in fp32 on the toy corpus: tiny-lm as it is,
-any other arch (or tiny-lm with ``--smoke``) at the reference's reduced
-size (2 layers, d_model <= 256). SSM and hybrid training wait for the
-scan's training form (ROADMAP.md, queue 1 item 11); VLM and encoder-decoder
+Trains a ported decoder config in fp32 on the toy corpus: tiny-lm as it
+is, any other arch (or tiny-lm with ``--smoke``) at the reference's reduced
+size (2 layers, d_model <= 256; the SSM and hybrid configs with the
+training scan of ``models/ssm.py::ssd_chunked``). VLM and encoder-decoder
 configs are refused, as the reference refuses them. ``--device`` defaults
 to ``cuda``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch mamba2-130m --steps 5
 """
 
 from __future__ import annotations

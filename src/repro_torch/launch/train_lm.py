@@ -4,14 +4,16 @@ twin of ``examples/train_lm.py``, with its arguments and defaults, plus
 ``--device`` (default ``cuda``). tiny-lm trains as it is; any other
 ``--arch`` trains its ``reduced()`` config, all in fp32 (a MoE config: 4
 experts top-2 of width 128, the loss CE + 0.01 x the router's aux, which
-each logged step prints beside the CE). SSM and hybrid
-configs raise ``NotImplementedError``: their training forward needs the
-reference's ``ssm_apply_train`` (ROADMAP.md, queue 1 item 11).
+each logged step prints beside the CE; an SSM or hybrid config: 2 layers
+with state 16, 4 scan heads of 32 and a chunk of 16, the training scan in
+``models/ssm.py::ssd_chunked``). An encoder-decoder is refused: its loss
+needs the encoder's input, which the token pipeline has none of.
 
     PYTHONPATH=src python -m repro_torch.launch.train_lm --steps 200 --ckpt-dir build/ck
     PYTHONPATH=src python -m repro_torch.launch.train_lm --device cpu --arch qwen2.5-7b
     PYTHONPATH=src python -m repro_torch.launch.train_lm --device cpu --arch gemma3-27b
     PYTHONPATH=src python -m repro_torch.launch.train_lm --device cpu --arch qwen3-moe-235b-a22b
+    PYTHONPATH=src python -m repro_torch.launch.train_lm --device cpu --arch zamba2-1.2b
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.common.pytree import tree_bytes
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import init_tree, unembed
 
@@ -110,9 +111,24 @@ class Model:
     def unembed(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden, params["embed"], params.get("head"))
 
-    def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None):
-        init = encdec.init_cache if self.is_encdec else transformer.init_cache
-        return init(self.cfg, batch, cache_len, self.dtype, resolve_device(device))
+    def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None,
+                   kv_quant: bool = False):
+        """Zeroed decode cache; ``kv_quant`` makes each attention layer's K/V
+        int8 with fp32 scales (the reference's int8 KV cache). An
+        encoder-decoder's cache is the same either way, as the reference's."""
+        return self._cache(batch, cache_len, resolve_device(device), kv_quant)
+
+    def cache_bytes(self, batch: int, cache_len: int, kv_quant: bool = False) -> int:
+        """Bytes of :meth:`init_cache`'s cache, counted without allocating it
+        (the sizes of the reference's ``cache_shapes``)."""
+        cache = self._cache(batch, cache_len, torch.device("meta"), kv_quant)
+        return tree_bytes(cache)
+
+    def _cache(self, batch: int, cache_len: int, device: torch.device, kv_quant: bool):
+        if self.is_encdec:
+            return encdec.init_cache(self.cfg, batch, cache_len, self.dtype, device)
+        return transformer.init_cache(self.cfg, batch, cache_len, self.dtype, device,
+                                      kv_quant=kv_quant)
 
     def decode_cache(self, prefill_cache, cache_len: int):
         """The cache ``prefill`` returned, made a decode cache of

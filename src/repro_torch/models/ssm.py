@@ -1,11 +1,15 @@
-"""Mamba2 / SSD (state-space duality) blocks for serving [arXiv:2405.21060]:
-prefill over a whole prompt and the O(1) decode recurrence.
+"""Mamba2 / SSD (state-space duality) blocks [arXiv:2405.21060]: the
+training forward, prefill over a whole prompt and the O(1) decode
+recurrence.
 
-The port's copy of ``repro/models/ssm.py``'s serving half. Prefill runs the
-chunked SSD scan through ``kernels.ops.ssd_scan`` where the reference calls
-``ssd_chunked`` (the point where the TPU runs its Pallas kernel); decode is
-the one-step recurrence in plain PyTorch. Layout: d_inner = H*P, one B/C
-group shared across heads.
+The port of ``repro/models/ssm.py``. Prefill runs the chunked SSD scan
+through ``kernels.ops.ssd_scan`` where the reference calls ``ssd_chunked``
+(the point where the TPU runs its Pallas kernel); decode is the one-step
+recurrence in plain PyTorch. Training (:func:`ssm_apply_train`) runs
+:func:`ssd_chunked`, plain PyTorch under autograd over the config's
+``ssm_chunk``, as the reference trains its scan through XLA: the repo has
+no backward kernel to port. Layout: d_inner = H*P, one B/C group shared
+across heads.
 
 Reference behaviour kept as it is:
 
@@ -18,10 +22,11 @@ Reference behaviour kept as it is:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops
@@ -78,10 +83,70 @@ def _discretize(dt_raw: torch.Tensor, A_log: torch.Tensor):
     return dt, dt * A                                          # dt, a = log-decay
 
 
-def ssm_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, State]:
-    """Full-sequence Mamba2 layer over (B, S, d); returns its output and the
-    decode state (h, conv tail)."""
+def _chunk_scan(xc, dtc, ac, Bc, Cc, h):
+    """The reference's scan body over chunks: each input is (nc, B, Q, ...)
+    with the chunks leading; h (B, H, P, N) fp32 is carried across them.
+    Returns (y chunks (nc, B, Q, H, P) fp32, the last h)."""
+    f32 = torch.float32
+    Q = xc.shape[2]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xc.device))
+    ys = []
+    for x_c, dt_c, a_c, B_c, C_c in zip(xc, dtc, ac, Bc, Cc):
+        x_c, B_c, C_c = x_c.to(f32), B_c.to(f32), C_c.to(f32)
+        cum = torch.cumsum(a_c, dim=1)                          # (B, Q, H)
+        # intra-chunk: the exponent masked before the exp (module docstring)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]          # (B, Q, Q, H)
+        L = torch.exp(torch.where(tri[None, :, :, None], diff, float("-inf")))
+        CB = torch.einsum("bqn,bkn->bqk", C_c, B_c)              # (B, Q, Q)
+        scores = CB[..., None] * L * dt_c[:, None, :, :]        # (B, Q, Q, H)
+        y_intra = torch.einsum("bqkh,bkhp->bqhp", scores, x_c)
+        # the carried state's contribution
+        y_inter = torch.einsum("bqn,bqh,bhpn->bqhp", C_c, torch.exp(cum), h)
+        # the new carried state
+        cum_last = cum[:, -1:, :]                               # (B, 1, H)
+        decay_to_end = torch.exp(cum_last - cum) * dt_c         # (B, Q, H)
+        state_new = torch.einsum("bkn,bkh,bkhp->bhpn", B_c, decay_to_end, x_c)
+        h = torch.exp(cum_last[:, 0, :])[:, :, None, None] * h + state_new
+        ys.append(y_intra + y_inter)
+    return torch.stack(ys), h
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, chunk: int, h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD in plain PyTorch, differentiable by autograd: x (B, S, H,
+    P), dt and a (B, S, H) fp32 (post-softplus step, log-decay dt * A), Bm
+    and Cm (B, S, N), over chunks of Q = min(chunk, S) with S padded to a
+    multiple of Q, from the state ``h0`` (B, H, P, N) fp32 (zeros if None).
+    Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) fp32).
+
+    The chunk loop runs under ``torch.utils.checkpoint``: the backward
+    recomputes it, so the (B, Q, Q, H) tiles are not kept between the
+    passes, the reference's ``scoped_kernel_vjp`` semantics."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        x, dt, a, Bm, Cm = (F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad])
+                            for t in (x, dt, a, Bm, Cm))
+    Sp = S + pad
+    nc = Sp // Q
+
+    def to_chunks(t):
+        return torch.movedim(t.reshape((B, nc, Q) + t.shape[2:]), 1, 0)
+
+    if h0 is None:
+        h0 = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    yc, h = torch.utils.checkpoint.checkpoint(
+        _chunk_scan, *(to_chunks(t) for t in (x, dt, a, Bm, Cm)), h0, use_reentrant=False)
+    y = torch.movedim(yc.to(x.dtype), 0, 1).reshape(B, Sp, H, P)[:, :S]
+    return y, h
+
+
+def _layer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, scan):
+    """The Mamba2 layer over (B, S, d) around ``scan(xs, dt, a, Bm, Cm) -> (y,
+    h)``. Returns (its output, h, the conv's raw input)."""
     H, P, N, _ = ssm_dims(cfg)
     B, S, _ = x.shape
     z, xbc_raw, dt_raw = _split_proj(x @ p["w_in"], cfg)
@@ -89,14 +154,31 @@ def ssm_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor,
     xs, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
     xs = xs.reshape(B, S, H, P)
     dt, a = _discretize(dt_raw, p["A_log"])
-    y, h = ops.ssd_scan(xs.contiguous(), dt, a, Bm.contiguous(), Cm.contiguous())
+    y, h = scan(xs, dt, a, Bm, Cm)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(B, S, H * P)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    W = cfg.ssm_conv_width
+    return y @ p["w_out"], h, xbc_raw
+
+
+def ssm_apply_train(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence Mamba2 layer for training, x (B, S, d) -> (B, S, d): the
+    scan in :func:`ssd_chunked` over ``cfg.ssm_chunk``, no decode state."""
+    return _layer(p, x, cfg, lambda *t: ssd_chunked(*t, cfg.ssm_chunk))[0]
+
+
+def ssm_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, State]:
+    """Full-sequence Mamba2 layer over (B, S, d); returns its output and the
+    decode state (h, conv tail)."""
+    scan = lambda xs, dt, a, Bm, Cm: ops.ssd_scan(xs.contiguous(), dt, a, Bm.contiguous(),
+                                                  Cm.contiguous())
+    out, h, xbc_raw = _layer(p, x, cfg, scan)
+    S, W = x.shape[1], cfg.ssm_conv_width
     conv_tail = (xbc_raw[:, -(W - 1):] if S >= W - 1
                  else F.pad(xbc_raw, (0, 0, W - 1 - S, 0)))
-    return y @ p["w_out"], {"h": h, "conv": conv_tail.to(x.dtype)}
+    return out, {"h": h, "conv": conv_tail.to(x.dtype)}
 
 
 def ssm_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, state: State,

@@ -1,6 +1,6 @@
 """Decoder-only models of the dense, VLM, MoE, SSM and hybrid families:
-prefill and cached decode; the training forward and its next-token loss
-(dense, VLM and MoE). The encoder-decoder family is ``models/encdec.py``.
+prefill and cached decode; the training forward and its next-token loss.
+The encoder-decoder family is ``models/encdec.py``.
 
 Architectures follow the reference's *layer plan*: a list of segments, each
 a ``(kinds, n_blocks)`` pair (``repro/models/transformer.py:58-82``):
@@ -21,7 +21,16 @@ invocation.
 
 The cache is a list with one entry per layer in execution order: a
 ``(k, v)`` pair of (B, Sc, KV, hd) tensors for an attention layer, an
-``{"h", "conv"}`` dict for an SSM layer (``models/ssm.py``). Prefill returns
+``{"h", "conv"}`` dict for an SSM layer (``models/ssm.py``). The int8 KV
+cache (:func:`init_cache` with ``kv_quant``, the reference's
+``cache_spec(kv_quant=True)``) holds ``(k, v, k_s, v_s)`` instead: int8 K/V
+and their fp32 scales (B, Sc, KV), one per token and KV head. Its form
+decides the path, as ``"k_s" in entry`` does in the reference: a decode step
+quantizes the new K/V into their slot (:func:`_quantize_kv`), dequantizes
+the whole cache to the model dtype and calls the same decode kernel, as the
+reference calls its decode kernel on the dequantized cache
+(``repro/models/transformer.py:424-431``). Only :func:`init_cache` makes
+one; the prefill and :func:`decode_cache` keep the model dtype. Prefill returns
 K/V of the prompt's length; :func:`decode_cache` makes the decode cache of
 ``cache_len = prompt_len + max_new`` positions from it (where the reference
 pads the prefill cache, ``RealEngine._grow_cache``). A full layer's K/V are
@@ -49,8 +58,7 @@ serving passes drop its router loss, the training forward sums it over the
 layers and ``lm_loss`` adds ``router_aux_coef`` times it. The MLP is the
 config's ``act``: gated (``silu``, ``gelu_gated``) or the plain two-matrix
 ``gelu`` (``layers.mlp_apply``); the hybrid's shared block is gated SiLU
-whatever the config says, as the reference's. The int8 KV cache has no
-switch in the port yet.
+whatever the config says, as the reference's.
 
 Qwen2-VL (family ``vlm``): M-RoPE (``use_mrope``: three position streams
 drive three sections of the rotary bands, ``models/rope.py``), and the
@@ -63,12 +71,13 @@ A decode step gives its position to all three streams, as the reference's
 position is the prompt's length S, not the text's next id.
 
 The training forward (:func:`train_forward`, :func:`lm_loss`) runs the
-layers with :func:`attention.blocked_attention` in plain PyTorch, causal
-with a ``local`` layer's window and no key mask, each layer with its own
-rope base, as the reference's train mode does, and can recompute
-each layer in the backward pass (``remat``, the reference's
-``jax.checkpoint``, ``transformer.py:307``). SSM layers do not train yet:
-the reference's ``ssm_apply_train`` is queued (ROADMAP.md, queue 1 item 11).
+attention layers with :func:`attention.blocked_attention` in plain PyTorch,
+causal with a ``local`` layer's window (and Zamba2's shared block with its
+own) and no key mask, each layer with its own rope base, and the SSM layers
+with ``models/ssm.py::ssm_apply_train``, as the reference's train mode does
+(``repro/models/transformer.py:210-227``); it can recompute each layer in
+the backward pass (``remat``, the reference's ``jax.checkpoint``,
+``transformer.py:307``).
 """
 
 from __future__ import annotations
@@ -89,7 +98,7 @@ from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.models.rope import (angles_by_base, positions_from_tokens,
                                      text_mrope_positions)
 
-Entry = Union[Tuple[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
+Entry = Union[Tuple[torch.Tensor, ...], Dict[str, torch.Tensor]]   # (k, v[, k_s, v_s]) | SSM
 Cache = List[Entry]
 
 
@@ -285,22 +294,25 @@ def _slots(cfg: ModelConfig, kind: str, cache_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype,
-               device: torch.device) -> Cache:
+               device: torch.device, kv_quant: bool = False) -> Cache:
     """Zeroed decode cache: K/V (B, Sc, KV, hd) in the model dtype per
-    attention layer (Sc from :func:`_slots`), h (B, H, P, N) fp32 and conv
-    (B, W-1, C) in the model dtype per SSM layer."""
+    attention layer (Sc from :func:`_slots`), or with ``kv_quant`` int8 K/V
+    and fp32 scales (B, Sc, KV); h (B, H, P, N) fp32 and conv (B, W-1, C) in
+    the model dtype per SSM layer."""
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
     cache: Cache = []
     for kind in layer_kinds(cfg):
         if kind == "ssm":
             H, P, N, d_conv = ssm_mod.ssm_dims(cfg)
-            cache.append({
-                "h": torch.zeros((batch, H, P, N), dtype=torch.float32, device=device),
-                "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, d_conv), dtype=dtype,
-                                    device=device)})
+            cache.append({"h": zeros((batch, H, P, N), torch.float32),
+                          "conv": zeros((batch, cfg.ssm_conv_width - 1, d_conv), dtype)})
+            continue
+        shape = (batch, _slots(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim)
+        if kv_quant:
+            cache.append((zeros(shape, torch.int8), zeros(shape, torch.int8),
+                          zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32)))
         else:
-            shape = (batch, _slots(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim)
-            cache.append((torch.zeros(shape, dtype=dtype, device=device),
-                          torch.zeros(shape, dtype=dtype, device=device)))
+            cache.append((zeros(shape, dtype), zeros(shape, dtype)))
     return cache
 
 
@@ -333,6 +345,20 @@ def decode_cache(cfg: ModelConfig, prefill_cache: Cache, cache_len: int) -> Cach
     return out
 
 
+def _quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, KV, hd) -> (int8 values, fp32 scales (B, KV)): scale = max|t| /
+    127, values rounded half to even and clipped to +-127 (the reference's
+    ``_quantize_kv``, ``repro/models/transformer.py:386-390``)."""
+    t = t.to(torch.float32)
+    scale = t.abs().amax(dim=-1) / 127.0
+    q = torch.round(t / torch.clamp(scale[..., None], min=1e-8))
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def _dequantize(c: torch.Tensor, s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (c.to(torch.float32) * s[..., None]).to(dtype)
+
+
 def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch.Tensor],
                 cache: Cache, pos: torch.Tensor, lengths: torch.Tensor,
                 capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None):
@@ -340,9 +366,9 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch
     (B, 1, d)), at positions ``pos`` (B,), which M-RoPE gives to all three
     streams; ``lengths`` (B,) int32 is each row's valid cache length AFTER
     this token. Writes the new K/V into ``cache`` in place (at ``pos %
-    window`` in a ring, attending to ``min(lengths, window)`` slots there)
-    and replaces its SSM states. Returns (logits (B, V) fp32, hidden (B,
-    d))."""
+    window`` in a ring, attending to ``min(lengths, window)`` slots there;
+    quantized in an int8 cache) and replaces its SSM states. Returns
+    (logits (B, V) fp32, hidden (B, d))."""
     B = pos.shape[0]
     kinds = layer_kinds(cfg)
     if embeds is None:
@@ -366,12 +392,18 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch
             x = x + y
             continue
         p = shared if kind == "shared_attn" else lp
-        kc, vc = cache[i]
+        kc, vc = cache[i][:2]
         at, n = ring if _window(cfg, kind) and kc.shape[1] == W else (slot, lengths)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv_project(p["attn"], h, cfg, angles(kind))
-        kc[bidx, at] = k[:, 0]
-        vc[bidx, at] = v[:, 0]
+        if len(cache[i]) == 4:                  # int8 K/V and their scales
+            ks, vs = cache[i][2:]
+            kc[bidx, at], ks[bidx, at] = _quantize_kv(k[:, 0])
+            vc[bidx, at], vs[bidx, at] = _quantize_kv(v[:, 0])
+            kc, vc = _dequantize(kc, ks, q.dtype), _dequantize(vc, vs, q.dtype)
+        else:
+            kc[bidx, at] = k[:, 0]
+            vc[bidx, at] = v[:, 0]
         o = attn.decode_attention(q, kc, vc, n)
         x, _ = _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, capacity_factor)
     hidden = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
@@ -384,28 +416,25 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch
 # ---------------------------------------------------------------------------
 
 
-def _train_layer(p, x, cfg: ModelConfig, angles, window: int, capacity_factor: float):
+def _train_layer(p, x, cfg: ModelConfig, kind: str, angles, capacity_factor: float):
+    """One layer of the training forward (``p`` is ``params["shared"]`` for
+    a ``shared_attn`` layer). Returns (x, the router's aux loss or None)."""
+    if kind == "ssm":
+        return x + ssm_mod.ssm_apply_train(p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                                           cfg), None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(p["attn"], h, cfg, angles)
-    o = attn.blocked_attention(q, k, v, window=window)
+    o = attn.blocked_attention(q, k, v, window=_window(cfg, kind))
     return _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, capacity_factor)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config that the token-only trainer cannot train: an
-    encoder-decoder, whose loss needs the encoder's input (``Model.loss``
-    takes it as ``batch["enc_embeds"]``), and SSM layers (and so the
-    hybrid's shared block, which only Zamba2 has), whose training forward is
-    not ported yet."""
+    """Raise for an encoder-decoder, which the token-only trainer cannot
+    train: its loss needs the encoder's input (``Model.loss`` takes it as
+    ``batch["enc_embeds"]``)."""
     if cfg.family == "encdec":
         raise ValueError(f"{cfg.name}: an encoder-decoder trains on batches with "
                          f"enc_embeds (Model.loss); the token pipeline has none")
-    kinds = layer_kinds(cfg)
-    if any(kind not in ("full", "local", "moe") for kind in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: training a {cfg.family} model needs the reference's "
-            f"ssm_apply_train (repro/models/ssm.py:140), not ported yet "
-            f"(ROADMAP.md, queue 1 item 11)")
 
 
 def train_forward(params: Dict[str, Any], cfg: ModelConfig,
@@ -422,8 +451,10 @@ def train_forward(params: Dict[str, Any], cfg: ModelConfig,
     x, positions = _inputs(params, cfg, tokens, embeds, positions)
     angles = _angles(cfg, kinds, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared")
     for kind, lp in zip(kinds, params["layers"]):
-        args = (lp, x, cfg, angles(kind), _window(cfg, kind), capacity_factor)
+        p = shared if kind == "shared_attn" else lp
+        args = (p, x, cfg, kind, angles(kind), capacity_factor)
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(_train_layer, *args,
                                                        use_reentrant=False)

@@ -4,7 +4,8 @@ checkpointing. The port of ``repro/training/trainer.py`` on one device.
 
 Parameters are the model's tree (``models/transformer.py``) with every
 tensor a leaf that requires grad; the step takes the gradients with
-``torch.autograd.grad`` and the optimizer updates the tensors in place. The
+``torch.autograd.grad`` (zeros for a leaf the loss never reads, as
+``jax.grad`` gives) and the optimizer updates the tensors in place. The
 optimizer sees the reference's leaves (:func:`param_groups`), so a layer
 stack trains as the reference's stacked tree does.
 """
@@ -90,8 +91,12 @@ def make_train_step(model: Model, tcfg: TrainConfig
 
         def loss_and_grads(b: Batch):
             loss, metrics = model.loss(state.params, b, remat=tcfg.remat)
-            return (loss.detach(), torch.autograd.grad(loss, leaves),
-                    {k: v.detach() for k, v in metrics.items()})
+            # a leaf the loss never reads (an SSM layer's dt_bias) gets zeros,
+            # as jax.grad gives it; clipping and AdamW then see the reference's
+            # tree (the zeros add nothing to the norm; AdamW still decays it)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            return loss.detach(), grads, {k: v.detach() for k, v in metrics.items()}
 
         n_micro = max(tcfg.microbatch, 1)
         if n_micro > 1:

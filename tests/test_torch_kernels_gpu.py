@@ -842,3 +842,109 @@ def test_moe_apply_on_the_card_matches_the_cpu(dtype, cf):
             torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-6, atol=1e-6)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _reduced_ssm(name):
+    """The reduced SSM / hybrid config in fp32 (state 16, 4 scan heads of
+    32, chunk 16; Zamba2's shared block on a 16-slot window) and its seeded
+    weights on the CPU, the shared block's wq and wk scaled by 0.1 as in
+    :func:`_tempered_tiny_lm`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    m = build_model(get_config(name).reduced().with_overrides(dtype="float32"))
+    params = m.init(seed=0, device="cpu")
+    if "shared" in params:
+        params["shared"]["attn"]["wq"] *= 0.1
+        params["shared"]["attn"]["wk"] *= 0.1
+    return m, params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_train_step_on_the_card_matches_the_cpu(name):
+    """One train_step (AdamW, clipping; the chunked scan under autograd and
+    checkpoint, S=48 in 3 chunks of 16) on the card against the CPU: the
+    loss and gradient norm at rtol 1e-5, AdamW's m and sqrt(v) (0.1 g and
+    ~0.03 |g| after one step) within 1e-5 of their global norm, as
+    tests/test_torch_ssm_train.py holds them against the reference; dt_bias,
+    which the loss never reads, keeps zero moments on both."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.data.pipeline import batch_iterator, make_lm_dataset
+    from repro_torch.training import trainer
+
+    dev = cuda_device()
+    m, params = _reduced_ssm(name)
+    ds = make_lm_dataset(16, 48)
+    ds.tokens = np.minimum(ds.tokens, m.cfg.vocab_size - 1)
+    batch = next(batch_iterator(ds, 4, device="cpu"))
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=3, decay_steps=10, remat="full")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for where in ("cpu", dev):
+            state = trainer.init_state(m, 0, tcfg, device=where,
+                                       params=tree_map(lambda t: t.clone().to(where), params))
+            state, met = trainer.make_train_step(m, tcfg)(
+                state, {k: v.to(where) for k, v in batch.items()})
+            out[str(where)] = (met, tree_map(lambda t: t.cpu(), state.opt_state))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (met_cpu, opt_cpu), (met_gpu, opt_gpu) = out["cpu"], out[str(dev)]
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(met_gpu[k].cpu(), met_cpu[k], rtol=1e-5, atol=0)
+    for name_, f in (("m", lambda t: t), ("v", torch.sqrt)):
+        norm = float(torch.sqrt(sum((f(t).double() ** 2).sum() for t in opt_cpu[name_].values())))
+        gap = max(float((f(opt_gpu[name_][k]) - f(opt_cpu[name_][k])).abs().max())
+                  for k in opt_cpu[name_])
+        assert gap <= 1e-5 * norm, (name_, gap, norm)
+    dt_bias = [k for k in opt_gpu["m"] if k.endswith("/ssm/dt_bias")]
+    assert len(dt_bias) == m.cfg.n_layers
+    assert not any(opt_gpu["m"][k].any() for k in dt_bias)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype", [("zamba2-1.2b", F32), ("yi-34b", BF16)])
+def test_int8_decode_on_the_card_matches_the_cpu(name, dtype):
+    """Decode on the int8 KV cache (``init_cache(kv_quant=True)``): the
+    decode kernel on the dequantized K/V, against the CPU's plain version.
+    Reduced Zamba2 in fp32, its shared block's 16-slot ring fed 20 tokens
+    (it wraps), and reduced Yi-34B in bf16 on a full cache. Each step starts
+    both devices from the CPU's cache (an int8 code one off at a rounding
+    tie would move the logits by ~7e-4 of their scale,
+    tests/test_torch_kv_quant.py); the logits are held within 1e-4 (fp32)
+    or 2e-2 (bf16) of their scale, the kernel launched once per attention
+    layer and step."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import layer_kinds
+
+    dev = cuda_device()
+    m = build_model(get_config(name).reduced().with_overrides(dtype=dtype))
+    params = m.init(seed=0, device="cpu")
+    p_dev = tree_map(lambda t: t.to(dev), params)
+    n_attn = sum(k != "ssm" for k in layer_kinds(m.cfg))
+    B, T = 3, 20
+    assert T > (m.cfg.attn_window or 0)
+    cache = m.init_cache(B, 24, device="cpu", kv_quant=True)
+    forced = torch.from_numpy(np.random.default_rng(3).integers(3, m.cfg.vocab_size, (T, B)))
+    tol = 1e-4 if dtype == F32 else 2e-2
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for t in range(T):
+            pos = torch.full((B,), t, dtype=torch.int32)
+            c_dev = tree_map(lambda x: x.to(dev), cache)
+            before = decode_attention_cuda.launches
+            got, _ = m.decode_step(p_dev, forced[t].to(dev), c_dev, pos.to(dev), pos.to(dev) + 1)
+            assert decode_attention_cuda.launches == before + n_attn
+            want, _ = m.decode_step(params, forced[t], cache, pos, pos + 1)
+            scale = float(want.float().abs().max())
+            torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol,
+                                       atol=tol * scale)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -162,13 +162,21 @@ def test_reduced_config_is_the_reference_reduced(name):
 @pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b"])
 def test_reduced_config_refuses_what_cannot_train(name):
     """reduced() is the reference's for SSM and hybrid configs (state 16, 4
-    heads of 32, a window of 16); training them still raises."""
+    heads of 32, a chunk of 16, a window of 16), and the port's own reduced
+    config trains: a finite loss with a gradient for every leaf (zeros for
+    dt_bias, which the loss never reads). The name is kept from when
+    training these raised; tests/test_torch_ssm_train.py holds the numbers
+    against the reference's."""
     cfg = get_config(name).reduced().with_overrides(dtype="float32")
     _same_fields(cfg, jget_config(name).reduced().with_overrides(dtype="float32"))
     model = build_model(cfg)
     params = model.init(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    leaves = list(pytree.tree_flatten(params).values())
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = model.loss(params, {"tokens": torch.arange(1, 25).reshape(1, 24)})
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
 
 
 @pytest.mark.parametrize("cfg", [
@@ -360,12 +368,23 @@ def test_remat_gives_the_same_numbers(tiny, data):
 
 @pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b"])
 def test_ssm_and_hybrid_training_is_queued(name):
+    """Once queued, SSM and hybrid training now runs (the name is kept): two
+    train_loop steps of the reduced config from seeded weights, remat on,
+    give finite losses and finite weights, and dt_bias, which no loss reads,
+    keeps zero AdamW moments."""
     cfg = port_config(jget_config(name).reduced().with_overrides(dtype="float32"))
-    m = build_model(cfg)
-    params = m.init(seed=0, device=CPU)
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        m.loss(params, batch)
+    ds = pipeline.make_lm_dataset(16, 24, seed=0)
+    ds.tokens = np.minimum(ds.tokens, cfg.vocab_size - 1)
+    state = trainer.train_loop(build_model(cfg), TrainConfig(**KW, remat="full"),
+                               pipeline.batch_iterator(ds, 4, seed=0, device=CPU), 2,
+                               verbose=False, device=CPU)
+    assert state.step == 2
+    assert all(np.isfinite(float(h["loss"])) for h in state.history)
+    flat = pytree.tree_flatten(state.params)
+    assert all(torch.isfinite(p).all() for p in flat.values())
+    dt_bias = [k for k in flat if k.endswith("/ssm/dt_bias")]
+    assert len(dt_bias) == cfg.n_layers
+    assert not any(state.opt_state["m"][k].any() for k in dt_bias)
 
 
 # ---------------------------------------------------------------------------
