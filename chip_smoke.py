@@ -46,6 +46,15 @@ script exits non-zero without its result line:
    1,500 keys), Qwen2-VL's prefill (12 heads on 2, hd=128, G=6); decode on
    Whisper's self cache, its static 1,500-slot cross cache (every key valid)
    and at Qwen2-VL's G=6 (with the split sweep);
+   run: the benchmark runner (``launch/run.py --only kernels,theory``) in
+   this process, its CSV rows printed: the reference kernel bench's four
+   rows (``launch/bench_kernels.py``: flash B=2, S=512, H=8 on 2, hd=64;
+   decode B=8 on a full 4,096-key cache; the scan at P = N = 32; the head at
+   B=128, d=1,024; all fp32), each kernel launched 23 times, and the four
+   theory booleans True, as the reference's; then ``bench_kernels.measure``
+   holds each kernel against its plain version at those shapes (second call
+   bit-identical) and times it beside its bound, its plain version and the
+   library call;
 4. serve, once per model, each at full width and depth with seeded random
    weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
    (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
@@ -133,7 +142,12 @@ script exits non-zero without its result line:
    kernel may launch, and each table's ``validate_*`` booleans must equal
    the reference's. One trained-head replay is profiled for the device's
    busy share. The phase runs in a child process (``--phase cluster``)
-   beside phases 5-6, which are host-bound too, and is read after them;
+   beside phases 5-6, which are host-bound too, and is read after them.
+   The child stamps each table as it finishes (``bench_serving._write_stamp``,
+   under the reference's keys, to ``build/chip_smoke_stamp.json``); the
+   parent reads the stamp back through ``launch/check_regression.py``: the
+   three keys with the rows and checks the child printed, the reference's
+   meta knobs, and the stamp gated against itself with no violation;
 8. train: the trainer (``training/trainer.py``) at Llama-3-8B's published
    widths with the depth cut to 2 layers, fp32: 5 AdamW steps (cosine
    schedule, clipping) on B=8 x 128 tokens of ``data/pipeline.py``. Losses
@@ -193,105 +207,23 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the kernel bench's timing and bound helpers: the kernel table's rows and
+    # launch/bench_kernels.py's are timed by one piece of code
+    from repro_torch.launch.bench_kernels import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,
+                                                  bound, device_time_ms, report_rows,
+                                                  sdpa_backend, ssd_scan_flops, time_ms,
+                                                  time_ms_cold)
+except ImportError as e:
+    sys.exit(f"chip_smoke: run from a checkout of the repository ({e})")
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12
-
+# the cluster phase's stamp (``build/`` is git-ignored)
+STAMP = ROOT / "build" / "chip_smoke_stamp.json"
 
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _graph(torch, fn, calls: int, warmup: int = 3):
-    """A CUDA graph of ``calls`` calls of ``fn`` (after ``warmup`` eager calls)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(calls):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    return g
-
-
-def device_time_ms(torch, fn, iters: int = 20) -> float:
-    """Device time of one call of ``fn``: ``iters`` calls captured in one
-    CUDA graph and replayed between CUDA events, so the host's launch work
-    (Python, checks, allocation, ctypes) is left out, for a kernel and its
-    library yardstick alike. ``time_ms`` times the same calls launched from
-    Python; where the host is slower than the device, that is host time."""
-    g = _graph(torch, fn, iters)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    g.replay()
-    end.record()
-    end.synchronize()
-    del g
-    return start.elapsed_time(end) / iters
-
-
-def time_ms_cold(torch, fn, flush, iters: int = 20):
-    """(eager ms, device ms) of one call of ``fn`` with the L2 cache cold:
-    ``flush`` (larger than the 50 MB L2) is written before each call, outside
-    the timed events. Eager: the device is idle when the call is launched
-    from Python, as a server launches the head once per batch, so the host's
-    launch work counts. Device: a one-call CUDA graph is replayed instead."""
-    start = [torch.cuda.Event(enable_timing=True) for _ in range(2 * iters)]
-    end = [torch.cuda.Event(enable_timing=True) for _ in range(2 * iters)]
-    g = _graph(torch, fn, 1)
-    for i in range(2 * iters):
-        flush.add_(1)
-        torch.cuda.synchronize()
-        start[i].record()
-        if i < iters:
-            fn()
-        else:
-            g.replay()
-        end[i].record()
-    torch.cuda.synchronize()
-    del g
-    times = [a.elapsed_time(b) for a, b in zip(start, end)]
-    return sum(times[:iters]) / iters, sum(times[iters:]) / iters
-
-
-def bound(bytes_moved: float, flops: float, peak_flops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def ssd_scan_flops(B: int, S: int, H: int, P: int, N: int) -> float:
-    """Least operations of the SSD scan (an FMA counts 2). The
-    recurrence h = exp(a) h + (dt x) B^T, y = C h needs 5 P N per (row, step,
-    head): a multiply and an FMA per state entry, and an FMA for y. The
-    chunked form with chunk Q needs per step, counting only products on or
-    below the diagonal: Q P for (C B^T o L o dt) x, Q N / H for C B^T (one
-    group shared by the H heads), 2 P N for C h, 2 P N for the state update
-    and P N / Q to decay h once a chunk. Elementwise terms are left out. Its
-    least over Q (Q near sqrt(N): ~4.2 P N at the served widths) is below
-    the recurrence's, and is what the bound counts."""
-    per_step = min(q * (P + N / H) + 4 * P * N + P * N / q for q in range(1, S + 1))
-    return B * S * H * min(5 * P * N, per_step)
 
 
 def ssd_fp64(torch, x, dt, a, Bm, Cm):
@@ -364,9 +296,9 @@ def kernel_checks(torch, ref, kernels):
         call = lambda: kernels["prod_head"](*args, qs)
         chain = lambda: torch.softmax(
             torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1)
-        ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
-        plain_ms = time_ms(torch, lambda: ref.prod_head_ref(*args, qs=qs))
-        lib_ms, lib_dev_ms = time_ms(torch, chain), device_time_ms(torch, chain)
+        ms, dev_ms = time_ms(call), device_time_ms(call)
+        plain_ms = time_ms(lambda: ref.prod_head_ref(*args, qs=qs))
+        lib_ms, lib_dev_ms = time_ms(chain), device_time_ms(chain)
         nbytes = 4 * (B * d + d * hidden + hidden + hidden * K + K + K + 1 + 3
                       + B * K + B * 3)
         flops = 2 * B * d * hidden + 2 * B * hidden * K
@@ -377,9 +309,8 @@ def kernel_checks(torch, ref, kernels):
                "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
                "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
         if (B, d) == (8, 4096):
-            row["cold_ms"], row["cold_device_ms"] = time_ms_cold(torch, call, flush)
-            row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(
-                torch, chain, flush)
+            row["cold_ms"], row["cold_device_ms"] = time_ms_cold(call, flush)
+            row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(chain, flush)
         rows.append(row)
     del flush
 
@@ -424,9 +355,9 @@ def kernel_checks(torch, ref, kernels):
         call = lambda: kernels["prod_head"](*args, lv)
         chain = lambda: torch.softmax(
             torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1)
-        ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
-        plain_ms = time_ms(torch, lambda: ref.prod_head_ref(*args, qs=lv))
-        lib_ms, lib_dev_ms = time_ms(torch, chain), device_time_ms(torch, chain)
+        ms, dev_ms = time_ms(call), device_time_ms(call)
+        plain_ms = time_ms(lambda: ref.prod_head_ref(*args, qs=lv))
+        lib_ms, lib_dev_ms = time_ms(chain), device_time_ms(chain)
         Q = len(levels)
         nbytes = 4 * (B * d + d * hidden + hidden + hidden * K + K + K + 1 + Q + B * K + B * Q)
         flops = 2 * B * d * hidden + 2 * B * hidden * K
@@ -471,9 +402,9 @@ def kernel_checks(torch, ref, kernels):
             call = lambda: kernels["prod_head"](*args, qs)
             chain = lambda: torch.softmax(
                 torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1)
-            ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
-            plain_ms = time_ms(torch, lambda: ref.prod_head_ref(*args, qs=qs))
-            lib_ms, lib_dev_ms = time_ms(torch, chain), device_time_ms(torch, chain)
+            ms, dev_ms = time_ms(call), device_time_ms(call)
+            plain_ms = time_ms(lambda: ref.prod_head_ref(*args, qs=qs))
+            lib_ms, lib_dev_ms = time_ms(chain), device_time_ms(chain)
             nbytes = 4 * (B * d + d * hidden + hidden + hidden * K + K + K + 1 + 3
                           + B * K + B * 3)
             flops = 2 * B * d * hidden + 2 * B * hidden * K
@@ -508,8 +439,8 @@ def kernel_checks(torch, ref, kernels):
         torch.cuda.synchronize()
         check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
               f"flash_attention hd={hd}: max err {max_err(torch, out, want)}")
-        ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
-        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+        ms, dev_ms = time_ms(call), device_time_ms(call)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=True, window=window, kv_lengths=lens), iters=5)
         G = H // KV
         qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
@@ -520,7 +451,7 @@ def kernel_checks(torch, ref, kernels):
             allowed = allowed & (pos[:, None] - pos[None, :] < window)
         mask = (allowed[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-        lib_ms, lib_dev_ms = time_ms(torch, sdpa), device_time_ms(torch, sdpa)
+        lib_ms, lib_dev_ms = time_ms(sdpa), device_time_ms(sdpa)
         pairs = int(mask.sum())               # (query, key) pairs this run computes
         nbytes = 2 * (2 * B * S * H * hd + 2 * int(lens.long().sum()) * KV * hd) + 4 * B
         flops = 4 * hd * H * pairs
@@ -558,16 +489,16 @@ def kernel_checks(torch, ref, kernels):
               f"decode_attention hd={hd}: max err {max_err(torch, out, want)}")
         check(torch.equal(out, again), f"decode_attention hd={hd}: two calls differ")
         call = lambda: kernels["decode_attention"](qd, kc, vc, dl)
-        ms, dev_ms = time_ms(torch, call, iters=50), device_time_ms(torch, call, iters=50)
-        plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, dl))
+        ms, dev_ms = time_ms(call, iters=50), device_time_ms(call, iters=50)
+        plain_ms = time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, dl))
         qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
         dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
         sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask,
                                                       enable_gqa=True)
         check(torch.allclose(sdpa()[:, :, 0].float(), want.float(), rtol=2e-2, atol=2e-2),
               f"SDPA yardstick hd={hd} disagrees with the plain version")
-        lib_ms, lib_dev_ms = (time_ms(torch, sdpa, iters=50),
-                              device_time_ms(torch, sdpa, iters=50))
+        lib_ms, lib_dev_ms = (time_ms(sdpa, iters=50),
+                              device_time_ms(sdpa, iters=50))
         n_keys = int(dl.long().sum())
         nbytes = 2 * (2 * B * H * hd + 2 * n_keys * KV * hd) + 4 * B
         flops = 4 * hd * H * n_keys
@@ -578,8 +509,8 @@ def kernel_checks(torch, ref, kernels):
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                "bytes": nbytes, "flops": flops,
                "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
-        row["cold_ms"], row["cold_device_ms"] = time_ms_cold(torch, call, flush)
-        row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(torch, sdpa, flush)
+        row["cold_ms"], row["cold_device_ms"] = time_ms_cold(call, flush)
+        row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(sdpa, flush)
         # other splits (head tile, splits, keys a split): device time warm and
         # cold, and the output against the plain version's: both round an fp32
         # value to bf16, so they may differ by one bf16 step (give or take
@@ -605,8 +536,8 @@ def kernel_checks(torch, ref, kernels):
                   f"decode_attention hd={hd} plan {p}: more than one bf16 step from the "
                   f"plain version (max|err| {max_err(torch, got, want)})")
             row["split_sweep"].append({
-                "plan": list(p), "device_ms": device_time_ms(torch, forced, iters=50),
-                "cold_device_ms": time_ms_cold(torch, forced, flush)[1],
+                "plan": list(p), "device_ms": device_time_ms(forced, iters=50),
+                "cold_device_ms": time_ms_cold(forced, flush)[1],
                 "max_abs_err": max_err(torch, got, want)})
         print(f"decode_attention {row['shape']}: plan {row['plan']} (head tile, splits, keys "
               f"a split); other splits: " + "; ".join(
@@ -633,12 +564,12 @@ def kernel_checks(torch, ref, kernels):
     check(out.dtype == f32 and torch.allclose(out, want, rtol=2e-5, atol=2e-5),
           f"flash_attention fp32 tiny-lm: max err {max_err(torch, out, want)}")
     check(torch.equal(out, again), "flash_attention fp32 tiny-lm: two calls differ")
-    ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
-    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
+    ms, dev_ms = time_ms(call), device_time_ms(call)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
                                                               kv_lengths=lens))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_ms, lib_dev_ms = time_ms(torch, sdpa), device_time_ms(torch, sdpa)
+    lib_ms, lib_dev_ms = time_ms(sdpa), device_time_ms(sdpa)
     nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd) + 4 * B
     flops = 4 * hd * H * B * S * (S + 1) // 2
     b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
@@ -664,13 +595,13 @@ def kernel_checks(torch, ref, kernels):
     check(out.dtype == f32 and torch.allclose(out, want, rtol=2e-5, atol=2e-5),
           f"decode_attention fp32 tiny-lm: max err {max_err(torch, out, want)}")
     check(torch.equal(out, again), "decode_attention fp32 tiny-lm: two calls differ")
-    ms, dev_ms = time_ms(torch, call, iters=50), device_time_ms(torch, call, iters=50)
-    plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, dl))
+    ms, dev_ms = time_ms(call, iters=50), device_time_ms(call, iters=50)
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, dl))
     qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
     dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
     sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask,
                                                   enable_gqa=True)
-    lib_ms, lib_dev_ms = (time_ms(torch, sdpa, iters=50), device_time_ms(torch, sdpa, iters=50))
+    lib_ms, lib_dev_ms = (time_ms(sdpa, iters=50), device_time_ms(sdpa, iters=50))
     n_keys = int(dl.long().sum())
     nbytes = 4 * (2 * B * H * hd + 2 * n_keys * KV * hd) + 4 * B
     flops = 4 * hd * H * n_keys
@@ -720,8 +651,8 @@ def kernel_checks(torch, ref, kernels):
               f"ssd_scan h {shape}: max err {max_err(torch, h, h_ref)}")
         check(torch.equal(y, y2) and torch.equal(h, h2), f"ssd_scan {shape}: two calls differ")
         call = lambda: kernels["ssd_scan"](*args)
-        ms, dev_ms = time_ms(torch, call), device_time_ms(torch, call)
-        plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args), iters=3, warmup=1)
+        ms, dev_ms = time_ms(call), device_time_ms(call)
+        plain_ms = time_ms(lambda: ref.ssd_scan_ref(*args), iters=3, warmup=1)
         nbytes = (2 * 2 * B * S * H * P + 2 * 4 * B * S * H + 2 * 2 * B * S * N
                   + 4 * B * H * P * N)
         flops = ssd_scan_flops(B, S, H, P, N)
@@ -769,17 +700,6 @@ def kernel_checks(torch, ref, kernels):
 
     report_rows(rows)
     return rows
-
-
-def sdpa_backend(torch, *args, **kwargs) -> str:
-    """The backend PyTorch's SDPA picks for these inputs (its private
-    ``_fused_sdp_choice``), or why that could not be read."""
-    try:
-        from torch.nn.attention import SDPBackend
-
-        return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
-    except Exception as e:  # a private API: report, do not fail the run
-        return f"not determined ({type(e).__name__})"
 
 
 G3_SERVE_LENS = (512, 300, 257, 480, 399, 511, 266, 448)
@@ -838,7 +758,7 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
         pairs = int(mask.sum())
         sdpa_mask = None if pairs == mask.numel() else mask
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
-        backend = sdpa_backend(torch, qt, kt, vt, sdpa_mask)
+        backend = sdpa_backend(qt, kt, vt, sdpa_mask)
         eb = 2 if dtype == bf else 4
         nbytes = eb * (2 * B * S * Hq * hd + 2 * int(lens.long().sum()) * Kv * hd) + 4 * B
         flops = 4 * hd * Hq * pairs
@@ -853,10 +773,10 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
                      "shape": f"B={B} {keys} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} {kind} "
                               f"{ragged}{f' window={window}' if window else ''} ({label})",
                      "max_abs_err": max_err(torch, out, want),
-                     "ms": time_ms(torch, call), "plain_ms": time_ms(torch, plain, iters=3),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, sdpa),
-                     "bytes": nbytes, "flops": flops, "device_ms": device_time_ms(torch, call),
-                     "library_device_ms": device_time_ms(torch, sdpa),
+                     "ms": time_ms(call), "plain_ms": time_ms(plain, iters=3),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+                     "bytes": nbytes, "flops": flops, "device_ms": device_time_ms(call),
+                     "library_device_ms": device_time_ms(sdpa),
                      "library_backend": backend})
 
     for spec in flash_rows:
@@ -884,7 +804,7 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
                                                       enable_gqa=True)
         check(torch.allclose(sdpa()[:, :, 0].float(), want.float(), rtol=tol, atol=tol),
               f"SDPA yardstick hd={hd} {label} disagrees with the plain version")
-        backend = sdpa_backend(torch, qdt, kct, vct, dmask, enable_gqa=True)
+        backend = sdpa_backend(qdt, kct, vct, dmask, enable_gqa=True)
         n_keys = int(dl.long().sum())
         eb = 2 if dtype == bf else 4
         nbytes = eb * (2 * B * Hq * hd + 2 * n_keys * Kv * hd) + 4 * B
@@ -894,16 +814,16 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
         row = {"name": "decode_attention",
                "shape": f"B={B} Sc={Sc} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} {ragged} "
                         f"({label})",
-               "max_abs_err": max_err(torch, out, want), "ms": time_ms(torch, call, iters=50),
-               "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": time_ms(torch, sdpa, iters=50), "bytes": nbytes, "flops": flops,
-               "device_ms": device_time_ms(torch, call, iters=50),
-               "library_device_ms": device_time_ms(torch, sdpa, iters=50),
+               "max_abs_err": max_err(torch, out, want), "ms": time_ms(call, iters=50),
+               "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(sdpa, iters=50), "bytes": nbytes, "flops": flops,
+               "device_ms": device_time_ms(call, iters=50),
+               "library_device_ms": device_time_ms(sdpa, iters=50),
                "library_backend": backend,
                "plan": list(decode_plan(dev, B, Sc, Hq, Kv, hd, dtype))}
         if dtype == bf:
-            row["cold_ms"], row["cold_device_ms"] = time_ms_cold(torch, call, flush)
-            row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(torch, sdpa,
+            row["cold_ms"], row["cold_device_ms"] = time_ms_cold(call, flush)
+            row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(sdpa,
                                                                                  flush)
         G = Hq // Kv
         n_blocks = row["plan"][1] * B * Kv * -(-G // row["plan"][0])
@@ -928,8 +848,8 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
                 check(torch.equal(got, got2),
                       f"decode_attention hd={hd} plan {p}: two calls differ")
                 row["split_sweep"].append({
-                    "plan": list(p), "device_ms": device_time_ms(torch, forced, iters=50),
-                    "cold_device_ms": time_ms_cold(torch, forced, flush)[1],
+                    "plan": list(p), "device_ms": device_time_ms(forced, iters=50),
+                    "cold_device_ms": time_ms_cold(forced, flush)[1],
                     "max_abs_err": max_err(torch, got, want)})
             print(f"decode_attention {row['shape']}: other splits: " + "; ".join(
                 f"{e['plan']} {e['device_ms']:.4f} ms warm, {e['cold_device_ms']:.4f} cold, "
@@ -1014,35 +934,38 @@ def encdec_vlm_kernel_checks(torch, ref, kernels):
                         what="whisper and qwen2-vl kernels")
 
 
-def report_rows(rows) -> None:
-    """Achieved rates (bytes and operations) and the share of the bound, of
-    the eager call and of the device time, added to each row and printed."""
+def run_phase(torch, counters):
+    """Phase 3b: the benchmark runner (``launch/run.py``) in this process on
+    its ``kernels`` and ``theory`` entries, its CSV rows printed. The
+    counts are set to 0 before it and read after: each kernel is launched 23
+    times (3 warm-up and 20 timed calls of its reference row). The theory
+    booleans must be True, as the reference's are. Then ``bench_kernels.measure``
+    holds each kernel against its plain version at the reference's shapes
+    (it raises outside the tolerance) and times it, its plain version 3
+    times, beside the library call; these launches are not counted. Returns
+    the launches and measure's rows."""
+    from repro_torch.launch import bench_kernels, run
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    csv = run.main(["--only", "kernels,theory"])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"run: launches {json.dumps(launches)}")
+    values = {name: value for name, value, _ in csv}
+    theory = {n: v for n, v in values.items() if n.startswith("theory_") and
+              n != "theory_lemma3_worst_ratio"}
+    check(len(theory) == 4 and all(str(v) == "True" for v in theory.values()),
+          f"run: theory booleans {theory}, the reference's are all True")
+    rows = bench_kernels.measure()
+    check(sorted(r["name"] for r in rows) == sorted(counters),
+          f"run: measure gave the kernels {[r['name'] for r in rows]}")
     for r in rows:
-        r["rate"] = (f"{r['bytes'] / r['ms'] / 1e9:.3g} TB/s, "
-                     f"{r['flops'] / r['ms'] / 1e9:.3g} TFLOP/s")
-        r["device_rate"] = (f"{r['bytes'] / r['device_ms'] / 1e9:.3g} TB/s, "
-                            f"{r['flops'] / r['device_ms'] / 1e9:.3g} TFLOP/s")
-        r["bound_share"] = r["bound_ms"] / r["ms"]
-        r["device_bound_share"] = r["bound_ms"] / r["device_ms"]
-        if "cold_device_ms" in r:
-            r["cold_device_bound_share"] = r["bound_ms"] / r["cold_device_ms"]
-        lib = ("none" if r["library_ms"] is None else
-               f"{r['library_ms']:.4f} ms (device "
-               + ("not measured" if r["library_device_ms"] is None
-                  else f"{r['library_device_ms']:.4f} ms") + ")")
-        cold = (f"; L2 cold {r['cold_ms']:.4f} ms (device {r['cold_device_ms']:.4f} ms, "
-                f"{100 * r['bound_ms'] / r['cold_device_ms']:.1f}% of the bound), "
-                f"library {r['library_cold_ms']:.4f} ms (device "
-                f"{r['library_cold_device_ms']:.4f} ms)" if "cold_ms" in r else "")
-        if "fp32_bound_ms" in r:
-            cold += (f"; fp32 CUDA-core bound {r['fp32_bound_ms']:.4f} ms "
-                     f"({100 * r['fp32_bound_ms'] / r['device_ms']:.1f}% device)")
-        print(f"kernel {r['name']:16s} {r['shape']}: max|err| {r['max_abs_err']:.3g}  "
-              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms)  plain "
-              f"{r['plain_ms']:.4f} ms  library {lib}  bound {r['bound_ms']:.4g} ms "
-              f"({r['bound_by']}), {r['rate']} ({r['device_rate']} device), "
-              f"{100 * r['bound_share']:.3g}% of the bound "
-              f"({100 * r['device_bound_share']:.3g}% device){cold}")
+        check(r["row"] in values, f"run: no {r['row']} row")
+        check(launches[r["name"]] == 23,
+              f"run: {r['name']} launched {launches[r['name']]} times, expected 23")
+    return launches, rows
 
 
 # each served model: generations per prompt, the kernels its path runs,
@@ -1263,12 +1186,12 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
     valid = torch.arange(Sp, device=dev)[None, :] < torch.as_tensor(plens, device=dev)[:, None]
     with torch.no_grad():
         prefill = lambda: model.prefill(params, tokens, attn_valid=valid, logits_mode="none")
-        prefill_ms = time_ms(torch, prefill, iters=3, warmup=1)
+        prefill_ms = time_ms(prefill, iters=3, warmup=1)
         cache = model.init_cache(B, Sp + max_new, device=dev)
         pos = torch.as_tensor(plens, dtype=torch.int32, device=dev)
         nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
         step = lambda: model.decode_step(params, nxt, cache, pos, pos + 1)
-        step_ms = time_ms(torch, step, iters=10, warmup=2)
+        step_ms = time_ms(step, iters=10, warmup=2)
         flops, flops_ms, step_bytes, bytes_ms = model_bounds(cfg, kinds, n_params, B, Sp,
                                                              Sp + max_new)
         print(f"serve {name}: prefill (B={B}, S={Sp}) {prefill_ms:.2f} ms, bound "
@@ -1727,7 +1650,9 @@ CLUSTER_REF_NUMBERS = {
 
 def cluster_phase(torch, counters):
     """Phase 7: the cluster tables with the head in the loop, at 8,000
-    requests on the card. Returns the launches of the three tables."""
+    requests on the card, each stamped to ``STAMP`` under the reference's
+    key as it finishes. Returns the launches of the three tables and, per
+    stamp key, the number of rows and the checks the phase printed."""
     from repro_torch.launch import bench_serving as bench
     from repro_torch.serving.cluster import Cluster
     from repro_torch.serving.arrivals import make_trace
@@ -1735,6 +1660,7 @@ def cluster_phase(torch, counters):
     from repro_torch.serving.scheduler import Policy
 
     total = {k: 0 for k in counters}
+    tables, stamped = {}, {}
     for name in ("predictors", "adaptation", "refine"):
         for c in counters.values():
             c.launches = 0
@@ -1772,6 +1698,10 @@ def cluster_phase(torch, counters):
             check(launches[k] == 0, f"cluster {name}: kernel {k} launched off its path")
         for k in total:
             total[k] += launches[k]
+        key = bench.STAMP_KEYS[name]
+        tables[key] = {"rows": rows, "checks": checks}
+        bench._write_stamp(str(STAMP), tables, n_requests=8000, seed=0, **bench.STAMP_META)
+        stamped[key] = {"rows": len(rows), "checks": checks}
 
     # where a replay's time goes: one trained-head replay of the predictor
     # table (psq, FCFS, q0.9 reservation), profiled (not counted)
@@ -1782,7 +1712,7 @@ def cluster_phase(torch, counters):
     device_profile(torch, lambda: Cluster.uniform(4, 32, 8 * (256 + 4096), pol, router="psq",
                                                   predictor=PredictorService(head, window=16.0))
                    .run(reqs), "cluster: one trained-prod-d replay (8,000 requests)")
-    return total
+    return total, stamped
 
 
 def cluster_child():
@@ -1797,14 +1727,45 @@ def cluster_child():
 
 
 def cluster_result(child, t0: float):
-    """Waits for :func:`cluster_child`, prints its output and returns its
-    launches; fails if it failed."""
+    """Waits for :func:`cluster_child`, prints its output, checks its stamp
+    (:func:`stamp_check`) and returns its launches; fails if it failed."""
     out, _ = child.communicate(timeout=1000)
     print(out, end="")
     print(f"cluster: the child process took {time.perf_counter() - t0:.1f} s, beside the "
           f"table1, ablations, sim and single phases")
     check(child.returncode == 0, f"cluster: the child process exited {child.returncode}")
-    return json.loads(out.strip().splitlines()[-1])["launches"]
+    result = json.loads(out.strip().splitlines()[-1])
+    stamp_check(result["stamped"])
+    return result["launches"]
+
+
+def stamp_check(stamped) -> None:
+    """The cluster child's stamp read back through ``check_regression``: the
+    three reference keys, each with the rows and checks the phase printed,
+    the reference's meta knobs, and the stamp gated against itself with no
+    violation and something compared."""
+    from repro_torch.launch.check_regression import compare, load_stamp
+
+    doc = load_stamp(str(STAMP))
+    check(sorted(doc["tables"]) == sorted(stamped),
+          f"stamp: tables {sorted(doc['tables'])}, the phase stamped {sorted(stamped)}")
+    for key, want in stamped.items():
+        table = doc["tables"][key]
+        check(len(table["rows"]) == want["rows"],
+              f"stamp {key}: {len(table['rows'])} rows, the phase printed {want['rows']}")
+        check(json.dumps(table["checks"], sort_keys=True) == json.dumps(want["checks"],
+                                                                          sort_keys=True),
+              f"stamp {key}: checks differ from the phase's")
+    meta = {k: doc["meta"].get(k) for k in ("n_requests", "n_replicas", "max_slots", "pattern",
+                                            "seed")}
+    check(meta == {"n_requests": 8000, "n_replicas": 4, "max_slots": 32, "pattern": "bursty",
+                   "seed": 0}, f"stamp: meta {meta}")
+    violations, skipped, compared = compare(doc, doc, 0.10, 0.95)
+    check(not violations and compared,
+          f"stamp against itself: {len(violations)} violations, {len(compared)} compared")
+    print(f"stamp: {STAMP.relative_to(ROOT)} holds {sorted(stamped)} (meta {json.dumps(meta)}, "
+          f"git_sha {doc['meta']['git_sha']}); against itself {len(compared)} metrics compared, "
+          f"{len(skipped)} skipped, no violation")
 
 
 def train_bounds(cfg, kinds, n_params: int, B: int, S: int):
@@ -2145,7 +2106,7 @@ def int8_kv_phase(torch, counters):
         nxt = forced[0]
         steps = {k: (lambda c=c: model.decode_step(params, nxt, c, pos, pos + 1))
                  for k, c in caches.items()}
-        step_ms = {k: time_ms(torch, f, iters=10, warmup=2) for k, f in steps.items()}
+        step_ms = {k: time_ms(f, iters=10, warmup=2) for k, f in steps.items()}
         quant = [e for e in caches["int8"] if len(e) == 4]
 
         def dequantize():
@@ -2153,7 +2114,7 @@ def int8_kv_phase(torch, counters):
                 transformer._dequantize(k, ks, torch.bfloat16)
                 transformer._dequantize(v, vs, torch.bfloat16)
 
-        deq_ms = time_ms(torch, dequantize, iters=10, warmup=2)
+        deq_ms = time_ms(dequantize, iters=10, warmup=2)
         print(f"int8 kv: decode step (B={B}, Sc={Sc}) {step_ms['bf16']:.2f} ms on the bf16 "
               f"cache, {step_ms['int8']:.2f} ms on the int8 cache, of which the {2 * len(quant)} "
               f"dequantizations take {deq_ms:.2f} ms ({100 * deq_ms / step_ms['int8']:.1f}%; "
@@ -2584,7 +2545,7 @@ def long_phase(torch, ref, counters):
     nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
     with torch.no_grad():
         prefill = lambda: model.prefill(params, tokens, attn_valid=valid, logits_mode="none")
-        prefill_ms = time_ms(torch, prefill, iters=2, warmup=1)
+        prefill_ms = time_ms(prefill, iters=2, warmup=1)
         with capture(ops, "flash_attention") as fl, capture(ops, "ssd_scan") as sc:
             _, _, pcache = prefill()
         cache = model.decode_cache(pcache, Sp + max_new)
@@ -2594,7 +2555,7 @@ def long_phase(torch, ref, counters):
         step = lambda: model.decode_step(params, nxt, cache, lens_t, lens_t + 1)
         with capture(ops, "decode_attention") as dc:
             step()
-        step_ms = time_ms(torch, step, iters=10, warmup=2)
+        step_ms = time_ms(step, iters=10, warmup=2)
     # bounds: the prefill's weight products plus its attention pairs at the
     # bf16 peak; a decode step's weights, states and K/V of min(len+1, W) keys
     qpos = np.arange(Sp)[None, :]
@@ -2663,8 +2624,8 @@ def long_phase(torch, ref, counters):
             with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
                 return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None])
 
-        lib_ms = time_ms(torch, sdpa, iters=3, warmup=1)
-        lib_dev_ms = device_time_ms(torch, sdpa, iters=3)
+        lib_ms = time_ms(sdpa, iters=3, warmup=1)
+        lib_dev_ms = device_time_ms(sdpa, iters=3)
     except RuntimeError as e:                   # no backend takes this mask here
         print(f"long: SDPA yardstick not measured ({str(e).splitlines()[0][:120]})")
     nbytes = 2 * (2 * B * Sp * cfg.n_heads * cfg.head_dim
@@ -2673,10 +2634,10 @@ def long_phase(torch, ref, counters):
     b_ms, b_by = bound(nbytes, fl_flops, BF16_FLOPS)
     rows.append({"name": "flash_attention",
                  "shape": f"B={B} S={Sp} H=32 KV=32 hd=64 bf16 causal window={W} ragged (long)",
-                 "max_abs_err": max_err(torch, got, want), "ms": time_ms(torch, call, iters=3),
-                 "plain_ms": time_ms(torch, plain, iters=1, warmup=0), "bound_ms": b_ms,
+                 "max_abs_err": max_err(torch, got, want), "ms": time_ms(call, iters=3),
+                 "plain_ms": time_ms(plain, iters=1, warmup=0), "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": lib_ms, "bytes": nbytes, "flops": fl_flops,
-                 "device_ms": device_time_ms(torch, call, iters=3),
+                 "device_ms": device_time_ms(call, iters=3),
                  "library_device_ms": lib_dev_ms})
     del got, want
 
@@ -2703,11 +2664,11 @@ def long_phase(torch, ref, counters):
     rows.append({"name": "decode_attention",
                  "shape": f"B={B} Sc={W} H=32 KV=32 hd=64 bf16 ring lengths {dlen.tolist()} (long)",
                  "max_abs_err": max_err(torch, got, want),
-                 "ms": time_ms(torch, call, iters=50), "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, dlen)),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, sdpa, iters=50),
+                 "ms": time_ms(call, iters=50), "plain_ms": time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, dlen)),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa, iters=50),
                  "bytes": nbytes, "flops": d_flops,
-                 "device_ms": device_time_ms(torch, call, iters=50),
-                 "library_device_ms": device_time_ms(torch, sdpa, iters=50)})
+                 "device_ms": device_time_ms(call, iters=50),
+                 "library_device_ms": device_time_ms(sdpa, iters=50)})
     del cache, qd, kc, vc
 
     # the scan, on the first SSM layer's prefill inputs
@@ -2730,10 +2691,10 @@ def long_phase(torch, ref, counters):
     b_ms, b_by = bound(nbytes, s_flops, BF16_FLOPS)
     rows.append({"name": "ssd_scan", "shape": f"B={Bs} S={S_} H={H} P={P} N={N} bf16 (long)",
                  "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, h, h_ref)),
-                 "ms": time_ms(torch, call, iters=5),
-                 "plain_ms": time_ms(torch, lambda: ref.ssd_scan_ref(*sargs), iters=1, warmup=0),
+                 "ms": time_ms(call, iters=5),
+                 "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*sargs), iters=1, warmup=0),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": nbytes,
-                 "flops": s_flops, "device_ms": device_time_ms(torch, call, iters=5),
+                 "flops": s_flops, "device_ms": device_time_ms(call, iters=5),
                  "library_device_ms": None})
     report_rows(rows)
     return launches
@@ -2807,7 +2768,7 @@ def gemma3_long_phase(torch, ref, counters):
     full = kinds.index("full")
     with torch.no_grad():
         prefill = lambda: model.prefill(params, tokens, attn_valid=valid, logits_mode="none")
-        prefill_ms = time_ms(torch, prefill, iters=2, warmup=1)
+        prefill_ms = time_ms(prefill, iters=2, warmup=1)
         with capture(ops, "flash_attention", at=(0, full)) as fl:
             _, _, pcache = prefill()
         cache = model.decode_cache(pcache, Sp + max_new)
@@ -2818,7 +2779,7 @@ def gemma3_long_phase(torch, ref, counters):
         step = lambda: model.decode_step(params, nxt, cache, lens_t, lens_t + 1)
         with capture(ops, "decode_attention", at=(0, full)) as dc:
             step()
-        step_ms = time_ms(torch, step, iters=5, warmup=1)
+        step_ms = time_ms(step, iters=5, warmup=1)
     print(f"gemma3 long: prefill (B={B}, S={Sp}) {prefill_ms:.1f} ms; decode step, local "
           f"layers on rings, {step_ms:.2f} ms; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -3024,7 +2985,7 @@ def whisper_phase(torch, ref, counters):
     with torch.no_grad():
         prefill = lambda: model.prefill(params, tokens, attn_valid=valid, enc_embeds=frames,
                                         logits_mode="none")
-        prefill_ms = time_ms(torch, prefill, iters=3, warmup=1)
+        prefill_ms = time_ms(prefill, iters=3, warmup=1)
         enc = cfg.n_encoder_layers
         with capture(ops, "flash_attention", at=(0, enc, enc + 1)) as fl:
             _, _, pcache = prefill()
@@ -3036,7 +2997,7 @@ def whisper_phase(torch, ref, counters):
         step = lambda: model.decode_step(params, nxt, cache, lens_t, lens_t + 1)
         with capture(ops, "decode_attention", at=(0, 1)) as dc:
             step()
-        step_ms = time_ms(torch, step, iters=10, warmup=2)
+        step_ms = time_ms(step, iters=10, warmup=2)
         flops, flops_ms, step_bytes, bytes_ms = encdec_bounds(cfg, B, plens, Sp + max_new)
         print(f"serve {name}: prefill (B={B}, {F} frames, Sp={Sp}) {prefill_ms:.2f} ms, bound "
               f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP: encoder, cross K/V, decoder and "
@@ -3133,7 +3094,7 @@ def vlm_embeds_phase(torch, ref, counters):
 
     with torch.no_grad():
         prefill = lambda: model.prefill(params, embeds=emb, positions=pos, logits_mode="none")
-        prefill_ms = time_ms(torch, prefill, iters=3, warmup=1)
+        prefill_ms = time_ms(prefill, iters=3, warmup=1)
         with capture(ops, "flash_attention") as fl:
             _, _, pcache = prefill()
         cache = model.decode_cache(pcache, S + steps)
@@ -3143,7 +3104,7 @@ def vlm_embeds_phase(torch, ref, counters):
         step = lambda: model.decode_step(params, nxt, cache, at, at + 1)
         with capture(ops, "decode_attention") as dc:
             step()
-        step_ms = time_ms(torch, step, iters=10, warmup=2)
+        step_ms = time_ms(step, iters=10, warmup=2)
         flops, flops_ms, step_bytes, bytes_ms = model_bounds(cfg, kinds, n_params, B, S,
                                                              S + steps, n_keys=B * (S + 1))
         print(f"{name} embeds: prefill (B={B}, S={S}) {prefill_ms:.2f} ms, bound "
@@ -3243,11 +3204,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
-        print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
     # the plain versions are the reference: full fp32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3273,7 +3229,8 @@ def main() -> int:
     kernels = {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
                "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
     if sys.argv[1:] == ["--phase", "cluster"]:          # the child of cluster_child
-        print(json.dumps({"launches": cluster_phase(torch, kernels)}))
+        launches, stamped = cluster_phase(torch, kernels)
+        print(json.dumps({"launches": launches, "stamped": stamped}))
         return 0
     wall, since = {}, [time.perf_counter()]
 
@@ -3289,6 +3246,9 @@ def main() -> int:
     rows += encdec_vlm_kernel_checks(torch, ref, kernels)
     mark("kernels")
     by_phase = {}
+    by_phase["run"], run_rows = run_phase(torch, kernels)
+    rows += run_rows
+    mark("run")
     for i, (name, r, on_path, profile, depth) in enumerate(SERVE_PHASES):
         by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0),
                                profile=profile, depth=depth)
@@ -3311,6 +3271,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("whisper-large-v3")
+    STAMP.parent.mkdir(exist_ok=True)
+    STAMP.unlink(missing_ok=True)                       # the child stamps anew
     t_child, child = time.perf_counter(), cluster_child()
     try:
         by_phase["table1"], t1_rows = table1_phase(torch, kernels)

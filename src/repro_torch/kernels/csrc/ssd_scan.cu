@@ -648,19 +648,29 @@ cudaError_t launch_tc(const bf16* x, const float* dt, const float* a, const bf16
   return cudaGetLastError();
 }
 
-// (P, N) pairs: the serving widths, Zamba2 64/64 and Mamba2-130M 64/128. Any
-// other pair is refused with cudaErrorInvalidValue, which the wrapper raises.
+// (P, N) pairs: the serving widths, Zamba2 64/64 and Mamba2-130M 64/128, in
+// fp32 and bf16; and 32/32 in fp32 only, the reference's kernel bench shape
+// (benchmarks/bench_kernels.py). The tensor-core kernel takes P = 64 alone
+// (4 state warps of 16 rows), so it is instantiated only for the P = 64
+// pairs: bf16 at 32/32, and any other pair, is refused with
+// cudaErrorInvalidValue, which the wrapper raises.
 template <int P, int N>
-cudaError_t by_dtype(int dtype, const void* x, const float* dt, const float* a, const void* bm,
-                     const void* cm, void* y, float* h, cudaStream_t s, int B, int S, int H) {
+cudaError_t fp32_only(int dtype, const void* x, const float* dt, const float* a, const void* bm,
+                      const void* cm, void* y, float* h, cudaStream_t s, int B, int S, int H) {
   if (dtype == kF32)
     return launch_simt<P, N>(static_cast<const float*>(x), dt, a, static_cast<const float*>(bm),
                              static_cast<const float*>(cm), static_cast<float*>(y), h, s, B, S,
                              H);
+  return cudaErrorInvalidValue;
+}
+
+template <int P, int N>
+cudaError_t by_dtype(int dtype, const void* x, const float* dt, const float* a, const void* bm,
+                     const void* cm, void* y, float* h, cudaStream_t s, int B, int S, int H) {
   if (dtype == kBF16)
     return launch_tc<P, N>(static_cast<const bf16*>(x), dt, a, static_cast<const bf16*>(bm),
                            static_cast<const bf16*>(cm), static_cast<bf16*>(y), h, s, B, S, H);
-  return cudaErrorInvalidValue;
+  return fp32_only<P, N>(dtype, x, dt, a, bm, cm, y, h, s, B, S, H);
 }
 
 cudaError_t by_widths(int P, int N, int dtype, const void* x, const float* dt, const float* a,
@@ -668,6 +678,7 @@ cudaError_t by_widths(int P, int N, int dtype, const void* x, const float* dt, c
                       int B, int S, int H) {
   if (P == 64 && N == 64) return by_dtype<64, 64>(dtype, x, dt, a, bm, cm, y, h, s, B, S, H);
   if (P == 64 && N == 128) return by_dtype<64, 128>(dtype, x, dt, a, bm, cm, y, h, s, B, S, H);
+  if (P == 32 && N == 32) return fp32_only<32, 32>(dtype, x, dt, a, bm, cm, y, h, s, B, S, H);
   return cudaErrorInvalidValue;
 }
 

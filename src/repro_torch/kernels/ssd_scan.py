@@ -12,8 +12,10 @@ measured slower; see the source's header). fp32 inputs keep the first
 version's CUDA-core kernel. Bound by bytes at the serving shapes (Zamba2:
 ~79 MB, ~0.0235 ms at 3.35 TB/s). The chunk length is the kernel's own and a
 ragged last chunk is masked inside it. The (P, N) pairs it takes are
-instantiated in ``csrc/ssd_scan.cu`` (``by_widths``); any other pair is
-refused there, and the refusal raises here.
+instantiated in ``csrc/ssd_scan.cu`` (``by_widths``): the served widths
+(64, 64) and (64, 128) in both dtypes, and (32, 32), the reference's kernel
+bench shape, in fp32 only (the tensor-core kernel takes P = 64 alone). Any
+other pair or dtype is refused there, and the refusal raises here.
 
 ``ssd_scan_cuda.launches`` counts the calls that launched the kernel.
 """

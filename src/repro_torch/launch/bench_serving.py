@@ -42,10 +42,14 @@ refine rows also carry that of the service that annotates the hazard fit's
 and the held-out traces (``annotation_service``). ``--tables`` picks tables
 (by default every one but ``obs``, as the reference's ``main``); named
 alone, a table whose reference ``--<table>-only`` mode gates on its
-acceptance booleans exits non-zero when one of them fails.
+acceptance booleans exits non-zero when one of them fails. ``--stamp PATH``
+writes each table's rows and checks to PATH as it finishes, under the
+reference's keys (``STAMP_KEYS``), with the meta knobs the reference records;
+``launch/check_regression.py`` gates one stamp against another.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_serving [--device cpu]
         [--n-requests 50000] [--tables single,cluster,hetero,...] [--obs-dir DIR]
+        [--stamp PATH [--timestamp TS]]
 """
 
 from __future__ import annotations
@@ -1249,6 +1253,78 @@ def run_table(name: str, n_requests: int = 50_000, seed: int = 0,
     return rows, validate_fn(rows)
 
 
+# the reference's stamp keys (benchmarks/bench_serving.py's ``finish`` calls)
+STAMP_KEYS = {"single": "single_replica", "cluster": "cluster", "hetero": "cluster_hetero",
+              "predictors": "cluster_predictors", "preemption": "cluster_preemption",
+              "adaptation": "cluster_adaptation", "prefix": "cluster_prefix",
+              "chunked": "cluster_chunked", "refine": "cluster_refine", "obs": "obs"}
+# the experiment knobs the reference's ``main`` records in a stamp's meta,
+# at its defaults, which are the port's tables'
+STAMP_META = dict(n_replicas=4, max_slots=32, pattern="bursty")
+
+
+def _git_sha():
+    """Best-effort current commit SHA for stamp provenance ("unknown" when
+    git is unavailable — e.g. a source tarball)."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            timeout=10, cwd=os.path.dirname(os.path.abspath(__file__)))
+        sha = out.stdout.strip()
+        return sha if out.returncode == 0 and sha else "unknown"
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+def _write_stamp(path, tables, timestamp=None, **meta):
+    """Stamp bench rows + validation checks to ``path`` (JSON), as the
+    reference's ``_write_stamp``: each entry is one table's raw rows and its
+    ``validate_*`` booleans/metrics, keyed by table name, plus a ``meta``
+    block (config knobs, git SHA, caller-supplied timestamp) that
+    ``launch/check_regression.py`` keys its diff on. Tables already stamped
+    in an existing file are kept, and meta is merged non-destructively
+    (existing keys survive unless this run supplies a new value), so a
+    partial run refreshes one table without dropping the rest. NumPy scalars
+    are written as JSON natives; no wall clock is read here."""
+    import json
+
+    def scrub(x):
+        if isinstance(x, dict):
+            return {k: scrub(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [scrub(v) for v in x]
+        if isinstance(x, (np.integer,)):
+            return int(x)
+        if isinstance(x, (np.floating,)):
+            return float(x)
+        if isinstance(x, (np.bool_,)):
+            return bool(x)
+        return x
+
+    merged, old_meta = {}, {}
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                prior = json.load(f)
+            merged = prior.get("tables", {})
+            old_meta = prior.get("meta", {})
+        except (ValueError, OSError):
+            merged, old_meta = {}, {}
+    merged.update(scrub(tables))
+    new_meta = dict(old_meta)
+    new_meta.update(scrub(meta))
+    new_meta["git_sha"] = _git_sha()
+    if timestamp is not None:
+        # caller-supplied, so runs stay replayable; an unstamped refresh
+        # keeps the previous one
+        new_meta["timestamp"] = str(timestamp)
+    with open(path, "w") as f:
+        json.dump({"meta": new_meta, "tables": merged}, f, indent=1,
+                  sort_keys=True)
+    print(f"stamped {len(tables)} table(s) ({len(merged)} total) -> {path}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -1259,13 +1335,19 @@ def main(argv=None):
     ap.add_argument("--obs-dir", metavar="DIR", default="obs_artifacts",
                     help="directory for the obs table's artifacts "
                          "(trace.json, metrics.prom, summary.json)")
+    ap.add_argument("--stamp", metavar="PATH", default=None,
+                    help="write rows + validation checks of every table run "
+                         "to PATH as JSON, under the reference's keys")
+    ap.add_argument("--timestamp", default=None,
+                    help="provenance timestamp recorded in the stamp's meta "
+                         "block (caller-supplied, e.g. $(date -uIs))")
     args = ap.parse_args(argv)
     names = [t for t in args.tables.split(",") if t]
     bad = [t for t in names if t not in TABLES]
     if bad:
         ap.error(f"unknown tables {bad}; choose from {list(TABLES)}")
     dev = resolve_device(args.device) if any(t in HEAD_TABLES for t in names) else None
-    out = {}
+    out, stamped = {}, {}
     for name in names:
         t0 = time.time()
         rows, checks = run_table(name, args.n_requests, args.seed, dev,
@@ -1273,6 +1355,10 @@ def main(argv=None):
         print(f"{name} checks:", checks)
         print(f"{name}: {time.time() - t0:.1f} s wall")
         out[name] = (rows, checks)
+        if args.stamp:
+            stamped[STAMP_KEYS[name]] = {"rows": rows, "checks": checks}
+            _write_stamp(args.stamp, stamped, timestamp=args.timestamp,
+                         n_requests=args.n_requests, seed=args.seed, **STAMP_META)
     if len(names) == 1 and names[0] in HARD_CHECKS:
         failed = [k for k in HARD_CHECKS[names[0]] if not out[names[0]][1].get(k, False)]
         if failed:

@@ -1,6 +1,7 @@
-"""The port's boundary: it imports neither JAX nor the JAX package, it
-imports cleanly where JAX cannot be imported, and its entry points refuse to
-run quietly on the CPU when no GPU is there and the CPU was not asked for."""
+"""The port's boundary: it imports neither JAX, the JAX package nor the
+reference's benchmarks, it imports cleanly where they cannot be imported, and
+its entry points refuse to run quietly on the CPU when no GPU is there and
+the CPU was not asked for."""
 
 import ast
 import subprocess
@@ -28,7 +29,7 @@ def _imported_modules(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -36,7 +37,7 @@ def test_package_imports_with_jax_and_reference_blocked():
     modules = sorted(".".join(p.relative_to(REPO / "src").with_suffix("").parts)
                      for p in PORT.rglob("*.py"))
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
@@ -62,8 +63,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     from repro_torch.core.baselines import run_method
     from repro_torch.data import make_scenario
     from repro_torch.data.pipeline import batch_iterator, make_lm_dataset
-    from repro_torch.launch import (bench_decode_step, bench_fig1, bench_online, serve,
-                                    serve_with_prod, table1, train, train_lm)
+    from repro_torch.launch import (bench_decode_step, bench_fig1, bench_kernels, bench_online,
+                                    run, serve, serve_with_prod, table1, train, train_lm)
     from repro_torch.models.model_zoo import build_model
     from repro_torch.training.trainer import init_state, train_loop
     from repro_torch.common.config import TrainConfig
@@ -91,7 +92,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
              lambda: train_lm.main(["--steps", "1"]),
              lambda: train_lm.main(["--arch", "yi-34b", "--steps", "1"]),
              lambda: serve_with_prod.main(["--train-steps", "1"]),
-             lambda: bench_decode_step.main(["--model", "tiny-lm"])]
+             lambda: bench_decode_step.main(["--model", "tiny-lm"]),
+             lambda: bench_kernels.run(),
+             lambda: bench_kernels.main([]),
+             lambda: run.main(["--only", "kernels"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

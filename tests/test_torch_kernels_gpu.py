@@ -948,3 +948,41 @@ def test_int8_decode_on_the_card_matches_the_cpu(name, dtype):
                                        atol=tol * scale)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,decay", [(512, 0.5), (509, 0.01), (65, 1.0)])
+def test_ssd_scan_p32_n32_fp32(S, decay):
+    """(P, N) = (32, 32), the reference's kernel bench widths, in fp32: the
+    CUDA-core kernel, held against the plain version at 2e-4 and
+    bit-identical on a second call (``_check_ssd``)."""
+    _check_ssd(_ssd_args(F32, 2, S, 8, 32, 32, decay, cuda_device()), F32)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_p32_n32_bf16_is_refused():
+    """The tensor-core kernel takes P = 64 alone: bf16 at (32, 32) is refused
+    by the launch, and the wrapper raises, counting no launch."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    args = _ssd_args(BF16, 1, 64, 2, 32, 32, 1.0, cuda_device())
+    before = ssd_scan_cuda.launches
+    with pytest.raises(RuntimeError, match="P=32, N=32"):
+        ops.ssd_scan(*args)
+    assert ssd_scan_cuda.launches == before
+
+
+@pytest.mark.gpu
+def test_bench_kernels_measure_on_the_card():
+    """The kernel bench's four rows at the reference's shapes: each kernel
+    within its tolerance of its plain version and bit-identical on a second
+    call (``measure`` raises otherwise), timed, with its bound."""
+    from repro_torch.launch import bench_kernels
+
+    dev = cuda_device()
+    rows = bench_kernels.measure(dev, iters=3)
+    assert [r["row"] for r in rows] == ["flash_attention_512", "decode_attention_4k",
+                                        "ssd_scan_512", "prod_head_128x1024"]
+    for r in rows:
+        assert r["ms"] > 0 and r["device_ms"] > 0 and r["bound_ms"] > 0
+        assert (r["library_ms"] is None) == (r["name"] == "ssd_scan")
