@@ -55,12 +55,30 @@ script exits non-zero without its result line:
    holds each kernel against its plain version at those shapes (second call
    bit-identical) and times it beside its bound, its plain version and the
    library call;
+   ep: ``models/moe.py``'s expert-parallel branch in 4 gloo processes that
+   share the card (``chip_smoke.py --phase ep``; ``ep_phase``): one
+   Qwen3-MoE-235B-A22B MoE layer at full width, bf16, T = 4 x 128 tokens,
+   on (2, 2) in both FSDP modes and on (1, 4): at no drop within 2e-2 of
+   max|out| of the single-device path, at the default capacity a second
+   call bit-identical; per rank the pairs dropped, ms per call and the
+   collectives' share (through host memory: no measure of NVLink); no
+   kernel on this path;
+   dryrun (a child process started beside the cluster child of phase 7 and
+   read after it, ``chip_smoke.py --phase dryrun``): ``launch/dryrun.py`` for
+   Llama-3-8B x decode_32k and Qwen3-MoE x prefill_32k on the 16x16 pod
+   mesh of a fake 256-rank group, each ``ok``, with the roofline table, and
+   the card's memory equal to ``launch/mesh.py``'s HBM_BYTES;
 4. serve, once per model, each at full width and depth with seeded random
    weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
    (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
    ``train_predictor`` on φ and median / q0.9 predictions through the fused
    head:
    - Llama-3-8B (32 layers, d=4096, bf16), r=4: flash, decode and head;
+     and the mesh check (``mesh_checks``): on a (1, 1) mesh the argument
+     bytes of its params and a B=8, 576-slot cache equal what init and
+     init_cache allocated, within 1e-3; its prefill traced on fake tensors
+     between the weight products' FLOPs and those plus every attention
+     pair's;
    - Zamba2-1.2B (38 Mamba2 layers + the shared attention block 6 times,
      d=2048, bf16), r=4: all four kernels;
    - Mamba2-130M (24 layers, d=768, bf16), r=2: scan and head;
@@ -1066,7 +1084,9 @@ class routing:
             out = self.orig(local_ids, combine_w, E_local, capacity)
             self.calls.append({
                 "cap": capacity,
-                "counts": self.moe._counts(local_ids.reshape(-1), E_local).cpu(),
+                # an expert-parallel shard's "not mine" id E_local is counted
+                # apart and left out
+                "counts": self.moe._counts(local_ids.reshape(-1), E_local + 1)[:E_local].cpu(),
                 "dropped": (out[3] == E_local * capacity).cpu()})
             return out
 
@@ -1125,8 +1145,10 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
+    params_bytes = torch.cuda.memory_allocated() - mem0
     n_params = sum(int(p.numel()) for p in _leaves(params))
     kinds = layer_kinds(cfg)
     print(f"serve {name}: {n_params / 1e9:.3f}B params ({cfg.dtype}, d={cfg.d_model}, "
@@ -1187,7 +1209,9 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
     with torch.no_grad():
         prefill = lambda: model.prefill(params, tokens, attn_valid=valid, logits_mode="none")
         prefill_ms = time_ms(prefill, iters=3, warmup=1)
+        mem0 = torch.cuda.memory_allocated()
         cache = model.init_cache(B, Sp + max_new, device=dev)
+        cache_bytes = torch.cuda.memory_allocated() - mem0
         pos = torch.as_tensor(plens, dtype=torch.int32, device=dev)
         nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
         step = lambda: model.decode_step(params, nxt, cache, pos, pos + 1)
@@ -1198,6 +1222,8 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
               f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP of weight products); decode step "
               f"(B={B}, Sc={Sp + max_new}) {step_ms:.2f} ms, bound {bytes_ms:.3f} ms "
               f"({step_bytes / 1e9:.2f} GB)")
+        if name == "llama3-8b":
+            mesh_checks(torch, model, params_bytes, cache_bytes, B, Sp, Sp + max_new, flops)
         if cfg.family == "moe":
             with routing(moe) as pre:
                 prefill()
@@ -3187,6 +3213,254 @@ def device_profile(torch, fn, label: str, top: int = 6) -> None:
             print(f"  {100 * ms / busy:5.1f}%  {ms:8.3f} ms  {name[:90]}")
 
 
+# the ep phase: one Qwen3-MoE-235B-A22B MoE layer at full width (d=4096, 128
+# experts, top-8, moe_d_ff=1536, bf16) over 4 gloo ranks that share the card,
+# T = 4 x 128 tokens; each (mesh, FSDP mode) of models/moe.py's EP branch
+EP_CASES = (((2, 2), "gather"), ((2, 2), "partial"), ((1, 4), "gather"))
+EP_RANKS = 4
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ep_phase(torch, counters):
+    """The expert-parallel MoE (``models/moe.py``) in 4 processes on this
+    card, over gloo (NCCL refuses two ranks on one GPU; gloo is a host
+    transport, so ``launch/mesh.py`` stages each collective through host
+    memory and the times below are no measure of NVLink). Each rank holds
+    the layer's global seeded weights (4.8 GB) and runs moe_apply on the
+    global tokens. Checks: at no drop (capacity factor 0, slack 1) each
+    mode's output within 2e-2 of max|out| of the single-device path on the
+    card (bf16; the psum over ``model`` sums in another order); at the
+    defaults (1.25, 2.0) a second call bit-identical. Prints the pairs each
+    shard drops at the defaults, each mode's time per rank (CUDA events) and
+    the collectives' share of it. No kernel runs on this path (the expert
+    products are batched matmuls, as the reference's einsums)."""
+    out_dir = ROOT / "build" / "chip_smoke_ep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.json"):
+        f.unlink()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "ep",
+                               str(r), str(port), str(out_dir)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(EP_RANKS)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=400)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"ep: rank {r} exited {proc.returncode}:\n{log[-3000:]}")
+    res = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(EP_RANKS)]
+    print(f"ep: 4 gloo ranks on one card, {time.perf_counter() - t0:.1f} s wall in all; "
+          f"peak memory per rank (GB) {[round(x['peak_gb'], 2) for x in res]}, "
+          f"{sum(x['peak_gb'] for x in res):.2f} GB together")
+    for case in res[0]["cases"]:
+        per_rank = [x["cases"][case] for x in res]
+        ref = res[0]["cases"][case]
+        print(f"ep {case}: no-drop output against the single-device path max|err| "
+              f"{ref['err']:.4g} at max|out| {ref['scale']:.4g} ({ref['err'] / ref['scale']:.3g} "
+              f"of it; tolerance 2e-2); defaults: second call bit-identical "
+              f"{[x['same'] for x in per_rank]}, pairs dropped per shard "
+              f"{[x['dropped'] for x in per_rank]} of {[x['pairs'] for x in per_rank]} "
+              f"at capacity {ref['cap']}; ms per call per rank (CUDA events) "
+              f"{[round(x['ms'], 2) for x in per_rank]}, collectives' share "
+              f"{[round(x['coll_ms'] / x['ms'], 3) for x in per_rank]} (gloo through host "
+              f"memory: not an NVLink time)")
+        check(ref["err"] <= 2e-2 * ref["scale"], f"ep {case}: differs from the single device")
+        check(all(x["same"] for x in per_rank), f"ep {case}: a second call differs")
+        check(all(x["finite"] for x in per_rank), f"ep {case}: output not finite")
+    launches = {k: sum(x["launches"][k] for x in res) for k in counters}
+    print(f"ep: launches {json.dumps(launches)} (no kernel on the EP path)")
+    check(not any(launches.values()), "ep: a kernel launched on the EP path")
+    return launches
+
+
+def ep_child(torch, counters, rank: int, port: int, out_dir: Path) -> None:
+    """One rank of ``ep_phase`` (``chip_smoke.py --phase ep RANK PORT DIR``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_tree
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=EP_RANKS)
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-moe-235b-a22b")
+    p = init_tree(moe.moe_spec(cfg), torch.Generator(device=dev).manual_seed(0),
+                  torch.bfloat16, dev)
+    x = torch.randn((4, 128, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    meshes = {shape: make_test_mesh(*shape) for shape in {s for s, _ in EP_CASES}}
+    for c in counters.values():
+        c.launches = 0
+    want = None
+    if rank == 0:
+        # without drops a token's output is its own routing's alone, so the
+        # single-device path runs a row at a time (its capacity buffer for
+        # all 512 tokens, 128 experts x 4,096 slots, would be 4.3 GB)
+        want = torch.cat([moe.moe_apply(p, x[i:i + 1], cfg, capacity_factor=0.0)[0]
+                          for i in range(x.shape[0])])
+        torch.cuda.empty_cache()
+    dist.barrier()
+    coll = [0.0]
+    cases = {}
+    for shape, mode in EP_CASES:
+        mesh = meshes[shape]
+        run = mesh._run
+
+        def timed_run(*a, run=run):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run(*a)
+            torch.cuda.synchronize()
+            coll[0] += time.perf_counter() - t
+            return out
+
+        mesh._run = timed_run
+        nodrop = moe.moe_apply(p, x, cfg, mesh=mesh, capacity_factor=0.0, cap_slack=1.0,
+                               fsdp_mode=mode)[0]
+        case = {"finite": bool(torch.isfinite(nodrop).all())}
+        if rank == 0:
+            case["err"] = float((nodrop.float() - want.float()).abs().max())
+            case["scale"] = float(want.float().abs().max())
+        del nodrop
+        with routing(moe) as rec:
+            a = moe.moe_apply(p, x, cfg, mesh=mesh, fsdp_mode=mode)[0]
+        call = rec.calls[0]
+        case["cap"] = call["cap"]
+        case["pairs"] = int(call["counts"].sum())
+        case["dropped"] = int((call["counts"] - call["cap"]).clamp(min=0).sum())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        dist.barrier()
+        coll[0] = 0.0
+        start.record()
+        b = moe.moe_apply(p, x, cfg, mesh=mesh, fsdp_mode=mode)[0]
+        end.record()
+        torch.cuda.synchronize()
+        case.update(same=bool(torch.equal(a, b)), ms=start.elapsed_time(end),
+                    coll_ms=1e3 * coll[0])
+        case["finite"] = case["finite"] and bool(torch.isfinite(a).all())
+        cases[f"{shape[0]}x{shape[1]} {mode}"] = case
+        mesh._run = run
+        del a, b
+        torch.cuda.empty_cache()
+    out = {"rank": rank, "cases": cases, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: c.launches for k, c in counters.items()}}
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# the dryrun phase's combinations (launch/dryrun.py on the 16x16 pod mesh)
+DRYRUN_COMBOS = (("llama3-8b", "decode_32k"), ("qwen3-moe-235b-a22b", "prefill_32k"))
+
+
+def dryrun_child_start():
+    """The dryrun phase in a child process (``chip_smoke.py --phase
+    dryrun``): its fake 256-rank process group must not meet the ep
+    phase's real one. It traces on the host's CPU, so it runs beside the
+    host-bound table1, ablations, sim and single phases, as the cluster
+    child does, and not beside the timed kernel and serve phases."""
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "dryrun"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_result(child, t0: float):
+    """Wait for the dryrun child; print its report and check each combination
+    traced. Returns its launches (none: it traces fake CPU tensors)."""
+    log, _ = child.communicate(timeout=600)
+    print(log.rstrip())
+    check(child.returncode == 0, f"dryrun: the child exited {child.returncode}")
+    out = json.loads(log.strip().splitlines()[-1])
+    print(f"dryrun: {time.perf_counter() - t0:.1f} s from its start to its result")
+    check(all(r["ok"] for r in out["results"]), "dryrun: a combination failed to trace")
+    check(not any(out["launches"].values()), "dryrun: a kernel launched")
+    return out["launches"]
+
+
+def dryrun_child(torch, counters) -> None:
+    """``launch/dryrun.py``'s run_one for DRYRUN_COMBOS on the pod mesh, the
+    roofline table of the results, and the card's memory against
+    ``launch/mesh.py``'s HBM_BYTES. Prints a JSON line last."""
+    from repro_torch.launch import dryrun, mesh, roofline
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dryrun: torch.cuda.get_device_properties(0).total_memory {total} "
+          f"(launch/mesh.py HBM_BYTES {mesh.HBM_BYTES})")
+    check(total == mesh.HBM_BYTES, "dryrun: HBM_BYTES is not this card's memory")
+    rows = []
+    for arch, shape in DRYRUN_COMBOS:
+        r = dryrun.run_one(arch, shape, multi_pod=False)
+        rows.append(r)
+        print(f"dryrun {arch} x {shape}: ok {r['ok']} in {r['total_s']} s "
+              f"({r.get('graph_nodes')} graph nodes); per device {r.get('flops_per_device', 0):.4g} "
+              f"FLOP, {r.get('bytes_per_device', 0):.4g} HBM bytes, argument bytes "
+              f"{r.get('memory', {}).get('argument_bytes')}; expert-parallel collectives "
+              f"{json.dumps({k: v for k, v in r.get('expert_parallel', {}).items() if k.endswith('_count') and v})}"
+              + (f"\n{r['traceback']}" if not r["ok"] else ""))
+    print(roofline.table(rows))
+    for line in roofline.notes(rows):
+        print(f"  {line}")
+    print(json.dumps({"results": [{k: r.get(k) for k in ("arch", "shape", "ok", "total_s")}
+                                  for r in rows],
+                      "launches": {k: c.launches for k, c in counters.items()}}))
+
+
+def mesh_checks(torch, model, params_bytes: int, cache_bytes: int, B: int, Sp: int,
+                cache_len: int, flops_bound: float) -> None:
+    """The serve phase's check of the mesh tooling on Llama-3-8B: on a (1, 1)
+    mesh the per-device argument bytes of the params and a B x cache_len
+    cache (``common/sharding.py``) equal what init and init_cache allocated
+    on the card, within 0.1%; the prefill traced on fake tensors
+    (``launch/graph_analysis.py``) does at least the weight products'
+    FLOPs and at most those plus the attention pairs'."""
+    import numpy as np
+
+    from repro_torch.common.pytree import fake_tensor
+    from repro_torch.common.sharding import map_axes, shard_shape, tree_shardings
+    from repro_torch.launch import graph_analysis
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(1, 1)
+    want = 0
+    for axes, shapes in ((model.param_axes(), model.param_shapes()),
+                         (model.cache_axes(), model.cache_shapes(B, cache_len))):
+        specs = tree_shardings(axes, shapes, mesh)
+        sizes = []
+        map_axes(lambda _a, t, s: sizes.append(int(np.prod(shard_shape(t.shape, s, mesh)))
+                                               * t.dtype.itemsize), axes, shapes, specs)
+        want += sum(sizes)
+    got = params_bytes + cache_bytes
+    print(f"mesh: (1, 1) argument bytes of params + the B={B}, {cache_len}-slot cache "
+          f"{want} against {got} allocated by init + init_cache ({got / want - 1:+.2e}; "
+          f"tolerance 1e-3)")
+    check(abs(got - want) <= 1e-3 * want, "mesh: argument bytes differ from the allocation")
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    gm = graph_analysis.trace(lambda p, t: model.prefill(p, t, logits_mode="none")[1],
+                              model.param_shapes(), fake_tensor((B, Sp), torch.long))
+    flops = graph_analysis.analyze(gm).flops
+    attn = 4.0 * B * Sp * Sp * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    print(f"mesh: traced prefill (B={B}, S={Sp}) {flops / 1e12:.3f} TFLOP in "
+          f"{time.perf_counter() - t0:.1f} s: weight products {flops_bound / 1e12:.3f}, "
+          f"attention pairs (QK and PV over every pair) {attn / 1e12:.3f}")
+    check(flops_bound <= flops <= flops_bound + attn, "mesh: traced prefill FLOPs out of bounds")
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3204,15 +3478,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # the plain versions are the reference: full fp32 products, no TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.prod_head import prod_head_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    kernels = {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
+               "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
+    # the ep ranks and the dryrun child run no kernel and build none
+    if sys.argv[1:3] == ["--phase", "ep"]:              # a rank of ep_phase
+        ep_child(torch, kernels, int(sys.argv[3]), int(sys.argv[4]), Path(sys.argv[5]))
+        return 0
+    if sys.argv[1:] == ["--phase", "dryrun"]:           # the child of dryrun_child_start
+        dryrun_child(torch, kernels)
+        return 0
+    # the plain versions are the reference: full fp32 products, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
@@ -3226,8 +3509,6 @@ def main() -> int:
             if "Used" in line or "spill" in line or "Function properties" in line:
                 print(f"  {lib.name.split('-')[0]}: {line.strip()}")
 
-    kernels = {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
-               "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
     if sys.argv[1:] == ["--phase", "cluster"]:          # the child of cluster_child
         launches, stamped = cluster_phase(torch, kernels)
         print(json.dumps({"launches": launches, "stamped": stamped}))
@@ -3249,6 +3530,10 @@ def main() -> int:
     by_phase["run"], run_rows = run_phase(torch, kernels)
     rows += run_rows
     mark("run")
+    by_phase["ep"] = ep_phase(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("ep")
     for i, (name, r, on_path, profile, depth) in enumerate(SERVE_PHASES):
         by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0),
                                profile=profile, depth=depth)
@@ -3274,6 +3559,7 @@ def main() -> int:
     STAMP.parent.mkdir(exist_ok=True)
     STAMP.unlink(missing_ok=True)                       # the child stamps anew
     t_child, child = time.perf_counter(), cluster_child()
+    t_dryrun, dry_child = time.perf_counter(), dryrun_child_start()
     try:
         by_phase["table1"], t1_rows = table1_phase(torch, kernels)
         mark("table1")
@@ -3284,10 +3570,13 @@ def main() -> int:
         mark("sim, single")
         by_phase["cluster"] = cluster_result(child, t_child)
         mark("cluster (the wait for its child)")
+        by_phase["dryrun"] = dryrun_result(dry_child, t_dryrun)
+        mark("dryrun (the wait for its child)")
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+        for c in (child, dry_child):
+            if c.poll() is None:
+                c.kill()
+                c.wait()
     by_phase["train"] = train_phase(torch, kernels)
     torch.cuda.empty_cache()
     mark("train")

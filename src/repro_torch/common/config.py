@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -169,6 +170,31 @@ class ModelConfig:
         if self.local_global_ratio:
             kw.update(local_global_ratio=min(self.local_global_ratio, 1))
         return self.with_overrides(**kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4_096, 256, "train"),
+    InputShape("prefill_32k", 32_768, 32, "prefill"),
+    InputShape("decode_32k", 32_768, 128, "decode"),
+    InputShape("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_input_shape(name: str) -> InputShape:
+    for s in INPUT_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown input shape {name!r}; options: {[s.name for s in INPUT_SHAPES]}")
 
 
 @dataclass(frozen=True)

@@ -4,9 +4,10 @@ tensor leaves (``models/transformer.py``'s params, an optimizer's state).
 Counting, casting and finiteness, as ``repro.common.pytree``; and the flat
 ``"a/0/b"`` paths of the leaves, the names under which the trainer's
 optimizer and ``training/checkpoint.py`` address them (the reference's
-checkpoint key format). ``tree_shapes`` and ``tree_zeros_like_spec`` exist
-in the reference for lowering without allocation; they wait for the mesh
-tooling (ROADMAP.md, queue 1 item 13).
+checkpoint key format). ``tree_shapes`` and ``tree_zeros_like_spec`` are the
+reference's shape-only stand-ins: here empty tensors under one shared
+``FakeTensorMode`` on the CPU, which the dry-run traces without allocating
+(``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -76,6 +77,35 @@ def tree_bytes(tree: Any) -> int:
 
 def tree_cast(tree: Any, dtype: torch.dtype) -> Any:
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+_FAKE_MODE = None
+
+
+def fake_mode():
+    """The one ``FakeTensorMode`` every shape-only stand-in lives in, so that
+    params, caches and batches made apart can meet in one trace."""
+    global _FAKE_MODE
+    if _FAKE_MODE is None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        _FAKE_MODE = FakeTensorMode(allow_non_fake_inputs=True)
+    return _FAKE_MODE
+
+
+def fake_tensor(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A CPU tensor of ``shape`` and ``dtype`` with no storage behind it."""
+    with fake_mode():
+        return torch.empty(tuple(shape), dtype=dtype)
+
+
+def tree_shapes(tree: Any) -> Any:
+    """Replace every leaf with a shape-only stand-in (:func:`fake_tensor`)."""
+    return tree_map(lambda x: fake_tensor(x.shape, x.dtype), tree)
+
+
+def tree_zeros_like_spec(tree: Any) -> Any:
+    """Materialize zeros from a tree of stand-ins (tests only)."""
+    return tree_map(lambda s: torch.zeros(tuple(s.shape), dtype=s.dtype), tree)
 
 
 def check_finite(tree: Any) -> bool:

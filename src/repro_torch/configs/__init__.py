@@ -1,5 +1,6 @@
 """Architecture registry of the port: every config of ``repro.configs``
 (its 10 assigned architectures, the paper's two served models and tiny-lm).
+``ASSIGNED_ARCHS`` are the ten the dry-run sweeps (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,19 @@ _MAKERS = {
     "whisper-large-v3": whisper_large_v3.make_config,
     "qwen2-vl-2b": qwen2_vl_2b.make_config,
 }
+
+ASSIGNED_ARCHS: List[str] = [
+    "whisper-large-v3",
+    "qwen2-vl-2b",
+    "minicpm-2b",
+    "kimi-k2-1t-a32b",
+    "qwen3-moe-235b-a22b",
+    "yi-34b",
+    "zamba2-1.2b",
+    "gemma3-27b",
+    "granite-20b",
+    "mamba2-130m",
+]
 
 
 def list_archs() -> List[str]:

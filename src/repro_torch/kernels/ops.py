@@ -6,6 +6,13 @@ no fall-back from one to the other. Signatures follow ``repro/kernels/ops.py``
 without its ``impl`` and block-size knobs: the device picks the path, and the
 tile sizes are the kernels' own. ``flash_attention`` adds ``kv_lengths``, the
 valid key prefix of each row.
+
+Each entry point runs under ``fusedkernel_<name>`` (``common/scopes.py``),
+the mark by which the dry-run's analyzer (``launch/graph_analysis.py``)
+counts a kernel's bytes. While a trace records (``scopes.tracing``), the
+scan's plain version is the chunked form the kernel computes
+(``ref.ssd_chunked`` at the kernel's chunk): ``ref.ssd_scan_ref`` loops
+over every position, which a traced 32k prefill would unroll step by step.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.common.scopes import is_tracing, kernel_region
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -29,6 +37,10 @@ def _on_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
+SCAN_CHUNK = 64      # the scan kernel's chunk (csrc/ssd_scan.cu)
+
+
+@kernel_region("fusedkernel_flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_lengths: Optional[torch.Tensor] = None):
     if _on_cuda(q):
@@ -38,21 +50,26 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    kv_lengths=kv_lengths)
 
 
+@kernel_region("fusedkernel_decode_attention")
 def decode_attention(q, k, v, lengths):
     if _on_cuda(q):
         return decode_attention_cuda(q, k, v, lengths)
     return ref.decode_attention_ref(q, k, v, lengths)
 
 
+@kernel_region("fusedkernel_ssd_scan")
 def ssd_scan(x, dt, a, Bm, Cm):
     """Chunked SSD scan: (y (B, S, H, P) in x's dtype, h (B, H, P, N) fp32).
     The reference's ``chunk`` is gone: the kernel picks its own and masks a
     ragged last chunk itself, so no padded copies are made."""
     if _on_cuda(x):
         return ssd_scan_cuda(x, dt, a, Bm, Cm)
+    if is_tracing():
+        return ref.ssd_chunked(x, dt, a, Bm, Cm, SCAN_CHUNK)
     return ref.ssd_scan_ref(x, dt, a, Bm, Cm)
 
 
+@kernel_region("fusedkernel_prod_head")
 def prod_head(phi, w1, b1, w2, b2, edges, *, qs=None):
     """Fused head. ``qs=None`` returns (probs, median); ``qs`` a sequence of
     CDF levels returns (probs, quants (B, Q)) — all levels in one call."""

@@ -2,7 +2,10 @@
 
 Line for line with ``repro/kernels/ref.py``. The CPU tests hold these against
 the JAX oracles; ``chip_smoke.py`` holds each CUDA kernel against them on the
-card; ``ops`` runs them for tensors that lie on the CPU.
+card; ``ops`` runs them for tensors that lie on the CPU. One addition,
+:func:`ssd_chunked`: the reference model's chunked scan (``repro/models/
+ssm.py``), the form the scan kernel computes, which the training forward
+differentiates and a traced prefill records.
 
 Two additions to ``flash_attention_ref``: it takes ``kv_lengths`` (B,), the
 valid key prefix of each row, which is how the port's prefill passes the
@@ -23,6 +26,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -112,6 +116,66 @@ def ssd_scan_ref(
         h, yt = step(h, *(v[:, t] for v in xs))
         ys.append(yt)
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def _chunk_scan(xc, dtc, ac, Bc, Cc, h):
+    """The reference's scan body over chunks: each input is (nc, B, Q, ...)
+    with the chunks leading; h (B, H, P, N) fp32 is carried across them.
+    Returns (y chunks (nc, B, Q, H, P) fp32, the last h)."""
+    f32 = torch.float32
+    Q = xc.shape[2]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xc.device))
+    ys = []
+    for x_c, dt_c, a_c, B_c, C_c in zip(xc, dtc, ac, Bc, Cc):
+        x_c, B_c, C_c = x_c.to(f32), B_c.to(f32), C_c.to(f32)
+        cum = torch.cumsum(a_c, dim=1)                          # (B, Q, H)
+        # intra-chunk: the exponent masked before the exp, so that no exp of a
+        # positive difference (inf) meets the mask in the backward
+        diff = cum[:, :, None, :] - cum[:, None, :, :]          # (B, Q, Q, H)
+        L = torch.exp(torch.where(tri[None, :, :, None], diff, float("-inf")))
+        CB = torch.einsum("bqn,bkn->bqk", C_c, B_c)              # (B, Q, Q)
+        scores = CB[..., None] * L * dt_c[:, None, :, :]        # (B, Q, Q, H)
+        y_intra = torch.einsum("bqkh,bkhp->bqhp", scores, x_c)
+        # the carried state's contribution
+        y_inter = torch.einsum("bqn,bqh,bhpn->bqhp", C_c, torch.exp(cum), h)
+        # the new carried state
+        cum_last = cum[:, -1:, :]                               # (B, 1, H)
+        decay_to_end = torch.exp(cum_last - cum) * dt_c         # (B, Q, H)
+        state_new = torch.einsum("bkn,bkh,bkhp->bhpn", B_c, decay_to_end, x_c)
+        h = torch.exp(cum_last[:, 0, :])[:, :, None, None] * h + state_new
+        ys.append(y_intra + y_inter)
+    return torch.stack(ys), h
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, chunk: int, h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD in plain PyTorch, differentiable by autograd: x (B, S, H,
+    P), dt and a (B, S, H) fp32 (post-softplus step, log-decay dt * A), Bm
+    and Cm (B, S, N), over chunks of Q = min(chunk, S) with S padded to a
+    multiple of Q, from the state ``h0`` (B, H, P, N) fp32 (zeros if None).
+    Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) fp32).
+    The reference's ``ssd_chunked`` (``repro/models/ssm.py``) and the form
+    the scan kernel computes (Q = 64, ``csrc/ssd_scan.cu``)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        x, dt, a, Bm, Cm = (F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad])
+                            for t in (x, dt, a, Bm, Cm))
+    Sp = S + pad
+    nc = Sp // Q
+
+    def to_chunks(t):
+        return torch.movedim(t.reshape((B, nc, Q) + t.shape[2:]), 1, 0)
+
+    if h0 is None:
+        h0 = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    yc, h = _chunk_scan(*(to_chunks(t) for t in (x, dt, a, Bm, Cm)), h0)
+    y = torch.movedim(yc.to(x.dtype), 0, 1).reshape(B, Sp, H, P)[:, :S]
+    return y, h
+
 
 
 def prod_head_ref(

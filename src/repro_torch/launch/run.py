@@ -4,15 +4,14 @@ benches: the twin of the reference's ``benchmarks/run.py``.
 Prints the same ``name,value,derived`` CSV rows, in the same order, from the
 port's twins (``bench_fig1``, ``bench_theory``, ``table1``, ``bench_table23``,
 ``bench_fig2``, ``bench_serving``, ``bench_online``, ``bench_bins_ablation``,
-``bench_kernels``); Table 1's rows feed Tables 2-3's ``validate``, as in the
-reference. The kernel rows are µs per call of the CUDA kernels (eager), or of
-the plain versions with ``--device cpu``. The reference's ``roofline`` entry
-reads the TPU dry-run's artifacts, which the port does not have yet (ROADMAP
-Queue 1, the TPU-mesh tooling), so it is not in the default set and
-``--only roofline`` exits non-zero. Usage:
+``bench_kernels``, ``roofline``); Table 1's rows feed Tables 2-3's
+``validate``, as in the reference. The kernel rows are µs per call of the
+CUDA kernels (eager), or of the plain versions with ``--device cpu``. The
+roofline rows count the dry-run's results (``launch/dryrun.py``) in
+``--dryrun-dir`` that traced, on each mesh. Usage:
 
     PYTHONPATH=src python -m repro_torch.launch.run [--full] [--only table1,...]
-        [--device cpu]
+        [--device cpu] [--dryrun-dir build/dryrun]
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import time
 from repro_torch.common.device import resolve_device
 
 ENTRIES = ("fig1", "theory", "table1", "table23", "fig2", "serving", "online", "bins",
-           "kernels")
+           "kernels", "roofline")
 
 
 def main(argv=None):
@@ -33,12 +32,11 @@ def main(argv=None):
     ap.add_argument("--only", default=None,
                     help="comma list: " + ",".join(ENTRIES))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dryrun-dir", default="build/dryrun",
+                    help="the dry-run's JSON results, for the roofline rows")
     args = ap.parse_args(argv)
     fast = not args.full
     only = set(args.only.split(",")) if args.only else None
-    if only and "roofline" in only:
-        raise SystemExit("--only roofline: the roofline reads the TPU dry-run's artifacts, "
-                         "which are not ported (ROADMAP Queue 1: the TPU-mesh tooling)")
     if only and not only <= set(ENTRIES):
         ap.error(f"unknown entries {sorted(only - set(ENTRIES))}; choose from "
                  f"{','.join(ENTRIES)}")
@@ -130,6 +128,16 @@ def main(argv=None):
         how = "cuda eager" if dev.type == "cuda" else "plain/cpu"
         for name, us in bench_kernels.run(device=dev).items():
             emit(name, f"{us:.1f}", f"us_per_call ({how})")
+
+    if want("roofline"):
+        print("== Roofline (from dry-run artifacts) ==", flush=True)
+        from repro_torch.launch import roofline
+        rrows = roofline.load(args.dryrun_dir)
+        ok = sum(1 for r in rrows if r.get("ok"))
+        emit("roofline_pod_combos_ok", f"{ok}/{len(rrows)}", "traced on 16x16")
+        mrows = roofline.load(args.dryrun_dir, mesh="multipod")
+        mok = sum(1 for r in mrows if r.get("ok"))
+        emit("roofline_multipod_combos_ok", f"{mok}/{len(mrows)}", "2x16x16")
 
     print(f"\ntotal bench time: {time.time()-t_all:.0f}s ({len(rows)} rows)")
     return rows

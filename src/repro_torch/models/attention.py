@@ -6,7 +6,10 @@ The JAX package runs jnp twins of its Pallas kernels at the first two points
 (``repro/models/attention.py:168,185``); the port calls its own kernels there,
 through ``kernels.ops``. Training differentiates :func:`blocked_attention`, a
 plain PyTorch online softmax, as the reference's trainer differentiates its
-XLA ``blocked_attention``: the repo has no backward kernel to port.
+XLA ``blocked_attention``: the repo has no backward kernel to port. Its core
+runs under ``scoped_kernel_vjp("fusedkernel_flash_attention")``
+(``common/scopes.py``), as the reference's: the backward recomputes the
+blocks, so only q, k and v are kept between the passes.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.scopes import scoped_kernel_vjp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, rms_norm
 from repro_torch.models.rope import apply_rope
@@ -26,14 +30,14 @@ from repro_torch.models.rope import apply_rope
 def attn_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     hd = cfg.head_dim
     s = {
-        "wq": ParamSpec((cfg.d_model, cfg.n_heads, hd)),
-        "wk": ParamSpec((cfg.d_model, cfg.n_kv_heads, hd)),
-        "wv": ParamSpec((cfg.d_model, cfg.n_kv_heads, hd)),
-        "wo": ParamSpec((cfg.n_heads, hd, cfg.d_model)),
+        "wq": ParamSpec((cfg.d_model, cfg.n_heads, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((cfg.d_model, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((cfg.d_model, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((cfg.n_heads, hd, cfg.d_model), ("heads", "head_dim", "embed")),
     }
     if cfg.qk_norm:                 # Gemma3: RMS norms over head_dim on q and k
-        s["q_norm"] = ParamSpec((hd,), init="zeros")
-        s["k_norm"] = ParamSpec((hd,), init="zeros")
+        s["q_norm"] = ParamSpec((hd,), ("head_dim",), init="zeros")
+        s["k_norm"] = ParamSpec((hd,), ("head_dim",), init="zeros")
     return s
 
 
@@ -137,42 +141,52 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiates it."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = 1.0 / math.sqrt(hd)
     bq, bk = min(BLOCK, Sq), min(BLOCK, Skv)
     q, k, v = _pad_to(q, bq), _pad_to(k, bk), _pad_to(v, bk)
+
+    def attend_all(q, k, v):
+        return torch.stack([_attend_block(q, k, v, i, bq, bk, Skv, causal, window)
+                            for i in range(q.shape[1] // bq)], dim=1)  # (B, nq, KV, G, bq, hd)
+
+    out = scoped_kernel_vjp("fusedkernel_flash_attention", attend_all)(q, k, v)
+    out = torch.movedim(out, -2, 2).reshape(B, -1, H, hd)
+    return out[:, :Sq].to(v.dtype)
+
+
+def _attend_block(q, k, v, i: int, bq: int, bk: int, Skv: int, causal: bool, window: int):
+    """Query block ``i`` of :func:`blocked_attention` against its key blocks
+    -> (B, KV, G, bq, hd) fp32."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
     qpos = torch.arange(q.shape[1], device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)
     f32 = torch.float32
-    outs = []
-    for i in range(q.shape[1] // bq):
-        rows = slice(i * bq, (i + 1) * bq)
-        qc = q[:, rows].reshape(B, bq, KV, G, hd).to(f32)
-        m = torch.full((B, KV, G, bq), NEG_INF, dtype=f32, device=q.device)
-        l = torch.zeros((B, KV, G, bq), dtype=f32, device=q.device)
-        acc = torch.zeros((B, KV, G, bq, hd), dtype=f32, device=q.device)
-        for j in range(k.shape[1] // bk):
-            if causal and j * bk > (i + 1) * bq - 1:
-                break                 # past the diagonal of every row of the block
-            if window and i * bq - ((j + 1) * bk - 1) >= window:
-                continue              # before the window of every row of the block
-            cols = slice(j * bk, (j + 1) * bk)
-            vb = v[:, cols]
-            s = torch.einsum("bqkgh,bskh->bkgqs", qc, k[:, cols].to(f32)) * scale
-            mask = (kpos[cols] < Skv)[None, :].expand(bq, bk)
-            if causal:
-                mask = mask & (kpos[cols][None, :] <= qpos[rows][:, None])
-            if window:
-                mask = mask & (qpos[rows][:, None] - kpos[cols][None, :] < window)
-            s = torch.where(mask, s, torch.full((), NEG_INF, dtype=f32, device=q.device))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bskh->bkgqh", p.to(vb.dtype).to(f32), vb.to(f32))
-            m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])   # (B, KV, G, bq, hd)
-    out = torch.stack(outs, dim=1)                                 # (B, nq, KV, G, bq, hd)
-    out = torch.movedim(out, -2, 2).reshape(B, -1, KV * G, hd)
-    return out[:, :Sq].to(v.dtype)
+    rows = slice(i * bq, (i + 1) * bq)
+    qc = q[:, rows].reshape(B, bq, KV, G, hd).to(f32)
+    m = torch.full((B, KV, G, bq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, KV, G, bq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, KV, G, bq, hd), dtype=f32, device=q.device)
+    for j in range(k.shape[1] // bk):
+        if causal and j * bk > (i + 1) * bq - 1:
+            break                 # past the diagonal of every row of the block
+        if window and i * bq - ((j + 1) * bk - 1) >= window:
+            continue              # before the window of every row of the block
+        cols = slice(j * bk, (j + 1) * bk)
+        vb = v[:, cols]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qc, k[:, cols].to(f32)) * scale
+        mask = (kpos[cols] < Skv)[None, :].expand(bq, bk)
+        if causal:
+            mask = mask & (kpos[cols][None, :] <= qpos[rows][:, None])
+        if window:
+            mask = mask & (qpos[rows][:, None] - kpos[cols][None, :] < window)
+        s = torch.where(mask, s, torch.full((), NEG_INF, dtype=f32, device=q.device))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p.to(vb.dtype).to(f32), vb.to(f32))
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]

@@ -42,7 +42,8 @@ Cache = List[Dict[str, torch.Tensor]]
 
 
 def _ln_spec(d: int) -> Dict[str, ParamSpec]:
-    return {"scale": ParamSpec((d,), init="ones"), "bias": ParamSpec((d,), init="zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
 
 
 def _ln(p, x, eps):
@@ -150,16 +151,24 @@ def whisper_loss(params, cfg: ModelConfig, tokens: torch.Tensor, enc_embeds: tor
     return loss, {"loss": loss}
 
 
+def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> List[Dict[str, ParamSpec]]:
+    """The decode cache as ParamSpecs, per decoder layer: self K/V (B, Sc, KV,
+    hd), Sc = ``min(attn_window, cache_len)`` with a window (a ring, as the
+    reference's ``decoder_cache_spec``) else ``cache_len``, and cross K/V
+    (B, encoder_seq, KV, hd)."""
+    W = cfg.attn_window
+    Sc = min(W, cache_len) if W else cache_len
+    ax = ("batch", "cache_seq", "cache_kv_heads", "head_dim")
+    kv = lambda S: ParamSpec((batch, S, cfg.n_kv_heads, cfg.head_dim), ax)
+    return [{"k": kv(Sc), "v": kv(Sc), "ck": kv(cfg.encoder_seq), "cv": kv(cfg.encoder_seq)}
+            for _ in range(cfg.n_layers)]
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype,
                device: torch.device) -> Cache:
-    """Zeroed decode cache per decoder layer: self K/V (B, cache_len, KV, hd)
-    and cross K/V (B, encoder_seq, KV, hd), in the model dtype (the
-    reference's ``decoder_cache_spec``)."""
-    def z(S):
-        return torch.zeros((batch, S, cfg.n_kv_heads, cfg.head_dim), dtype=dtype,
-                           device=device)
-    return [{"k": z(cache_len), "v": z(cache_len), "ck": z(cfg.encoder_seq),
-             "cv": z(cfg.encoder_seq)} for _ in range(cfg.n_layers)]
+    """Zeroed decode cache of :func:`cache_spec` in the model dtype."""
+    return [{k: torch.zeros(s.shape, dtype=dtype, device=device) for k, s in e.items()}
+            for e in cache_spec(cfg, batch, cache_len)]
 
 
 def decode_cache(prefill_cache: Cache, cache_len: int) -> Cache:
@@ -182,13 +191,17 @@ def decoder_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: C
     """One decoder token for each row: ``tokens`` (B,) at positions ``pos``
     (B,); ``lengths`` (B,) int32, each row's valid self-cache length AFTER
     this token. Writes the new self K/V into ``cache`` in place at ``pos``
-    and attends to every cross key. Returns (logits (B, V) fp32, hidden (B,
+    (``pos % window`` in a ring of ``attn_window`` slots, attending to
+    ``min(lengths, window)`` of them) and attends to every cross key. Returns (logits (B, V) fp32, hidden (B,
     d))."""
     B = tokens.shape[0]
     x = params["embed"][tokens][:, None]                                  # (B, 1, d)
     x = x + sinusoid_at(pos[:, None], cfg.d_model).to(x.dtype)
     bidx = torch.arange(B, device=tokens.device)
-    slot = pos.to(torch.long)
+    slot, n_self = pos.to(torch.long), lengths
+    W = cfg.attn_window
+    if W and cache[0]["k"].shape[1] == W:
+        slot, n_self = torch.remainder(slot, W), attn.ring_cache_valid(lengths, W)
     all_keys = None
     for lp, e in zip(params["decoder"], cache):
         h = _ln(lp["ln1"], x, cfg.norm_eps)
@@ -196,7 +209,7 @@ def decoder_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: C
         e["k"][bidx, slot] = k[:, 0]
         e["v"][bidx, slot] = v[:, 0]
         x = x + attn.out_project(lp["self_attn"],
-                                 attn.decode_attention(q, e["k"], e["v"], lengths))
+                                 attn.decode_attention(q, e["k"], e["v"], n_self))
         h = _ln(lp["ln2"], x, cfg.norm_eps)
         if all_keys is None:
             all_keys = torch.full((B,), e["ck"].shape[1], dtype=torch.int32,

@@ -1,7 +1,7 @@
 """Parameter specs with their initialisers, and the elementary layers.
 
-A model is described once as a tree of :class:`ParamSpec` leaves (shape +
-initialiser), as in ``repro.models.layers``; ``init_tree`` materialises it
+A model is described once as a tree of :class:`ParamSpec` leaves (shape,
+logical sharding axes and initialiser), as in ``repro.models.layers``; ``init_tree`` materialises it
 from a seeded ``torch.Generator`` with the reference's scales: normal with
 std 1/sqrt(fan_in), fan_in = ``shape[-2]`` (the last dim for vectors), or
 an explicit ``scale``; embeddings normal with std 0.02; RMS norm scales
@@ -23,8 +23,25 @@ import torch.nn.functional as F
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical names (``common/sharding.py``)
     init: str = "normal"        # normal | zeros | ones | embed
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in) for "normal"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def axes_tree(spec: Any) -> Any:
+    """The spec tree with each leaf replaced by its logical axes."""
+    if isinstance(spec, dict):
+        return {k: axes_tree(v) for k, v in spec.items()}
+    if isinstance(spec, (list, tuple)):
+        return type(spec)(axes_tree(v) for v in spec)
+    return spec.axes
 
 
 def init_tree(spec: Any, generator: torch.Generator, dtype: torch.dtype,
@@ -82,9 +99,10 @@ GATED = ("silu", "gelu_gated")
 
 def mlp_spec(d_model: int, d_ff: int, act: str) -> Dict[str, ParamSpec]:
     """A gated MLP's three matrices, or the plain MLP's two (act="gelu")."""
-    spec = {"w_up": ParamSpec((d_model, d_ff)), "w_down": ParamSpec((d_ff, d_model))}
+    spec = {"w_up": ParamSpec((d_model, d_ff), ("embed", "ffn")),
+            "w_down": ParamSpec((d_ff, d_model), ("ffn", "embed"))}
     if act in GATED:
-        spec = {"w_gate": ParamSpec((d_model, d_ff)), **spec}
+        spec = {"w_gate": ParamSpec((d_model, d_ff), ("embed", "ffn")), **spec}
     return spec
 
 
@@ -99,7 +117,7 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Te
 
 
 def embed_spec(vocab: int, d_model: int) -> ParamSpec:
-    return ParamSpec((vocab, d_model), init="embed")
+    return ParamSpec((vocab, d_model), ("vocab", "embed"), init="embed")
 
 
 def unembed(x: torch.Tensor, w_embed: torch.Tensor,

@@ -1,13 +1,23 @@
 """Model facade: ``build_model(cfg)`` returns a :class:`Model` whose methods
 are plain functions of (params, batch).
 
-The port has no ``Runtime``: of the reference's knobs it reads two. The MoE
-``capacity_factor`` (default 1.25, 0 = no drop, as the reference's) is a
-field of :class:`Model` and reaches every MoE layer of ``loss``, ``prefill``
-and ``decode_step``; ``remat`` is an argument of :meth:`Model.loss`. The
-others (block sizes, causal skip, mesh, the expert-parallel slack and FSDP
-mode) are read by nothing: the kernels choose their own tiles and always skip
-fully masked tiles, and the port runs on one device.
+The port has no ``Runtime``: its knobs are fields of :class:`Model` or
+arguments. The MoE ``capacity_factor`` (default 1.25, 0 = no drop, as the
+reference's), the ``mesh`` (``launch/mesh.py``) and the expert-parallel
+``moe_cap_slack`` (2.0) and ``moe_fsdp_mode`` ("gather" | "partial") reach
+every MoE layer of ``loss``, ``prefill`` and ``decode_step``, as the
+reference's ``Runtime`` threads them (``models/moe.py``); ``remat`` is an
+argument of :meth:`Model.loss` and ``kv_quant`` of :meth:`Model.init_cache`.
+Two of the reference's knobs are read by nothing:
+
+* ``causal_skip`` (and the block sizes): the kernels choose their own tiles
+  and always skip fully masked ones;
+* ``seq_shard``: a GSPMD layout hint (``with_sharding_constraint``) with no
+  numeric effect, and the port has no automatic partitioner to take it.
+
+``param_shapes`` / ``cache_shapes`` give shape-only stand-ins (fake tensors,
+``common/pytree.py``) and ``param_axes`` / ``cache_axes`` the logical axes of
+each leaf (``common/sharding.py`` resolves them on a mesh).
 The ProD predictor head consumes ``hidden`` from prefill: the served model's
 last-layer hidden state of the last prompt token (paper §2.4).
 
@@ -27,9 +37,10 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
-from repro_torch.common.pytree import tree_bytes
+from repro_torch.common.pytree import fake_tensor, tree_bytes, tree_map
 from repro_torch.models import encdec, transformer
-from repro_torch.models.layers import init_tree, unembed
+from repro_torch.models.layers import axes_tree, init_tree, unembed
+from repro_torch.models.moe import MoeKnobs
 
 
 def last_token_hidden(hidden: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -42,6 +53,14 @@ def last_token_hidden(hidden: torch.Tensor, lengths: torch.Tensor) -> torch.Tens
 class Model:
     cfg: ModelConfig
     capacity_factor: float = 1.25
+    mesh: Any = None
+    moe_cap_slack: float = 2.0
+    moe_fsdp_mode: str = "gather"
+
+    @property
+    def moe(self) -> MoeKnobs:
+        return MoeKnobs(self.capacity_factor, self.mesh, self.moe_cap_slack,
+                        self.moe_fsdp_mode)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -62,6 +81,15 @@ class Model:
         g = torch.Generator(device=dev).manual_seed(seed)
         return init_tree(self.spec(), g, self.dtype, dev)
 
+    def param_shapes(self, dtype: Optional[torch.dtype] = None):
+        """The parameters as shape-only stand-ins, in ``dtype`` (the
+        config's by default)."""
+        dt = dtype or self.dtype
+        return tree_map(lambda s: fake_tensor(s.shape, dt), self.spec())
+
+    def param_axes(self):
+        return axes_tree(self.spec())
+
     def loss(self, params, batch: Dict[str, torch.Tensor], remat: str = "none"):
         """Training objective: next-token CE over ``batch["tokens"]``, masked
         by ``batch["loss_mask"]`` if present, plus the MoE router loss (an
@@ -75,8 +103,7 @@ class Model:
                                        loss_mask=batch.get("loss_mask"))
         return transformer.lm_loss(params, self.cfg, batch["tokens"],
                                    loss_mask=batch.get("loss_mask"),
-                                   remat=remat == "full",
-                                   capacity_factor=self.capacity_factor,
+                                   remat=remat == "full", moe=self.moe,
                                    embeds=batch.get("embeds"),
                                    positions=batch.get("positions"))
 
@@ -95,8 +122,7 @@ class Model:
             return encdec.decoder_forward(params, self.cfg, tokens, enc_out,
                                           attn_valid=attn_valid, logits_mode=logits_mode)
         return transformer.forward(params, self.cfg, tokens, attn_valid=attn_valid,
-                                   logits_mode=logits_mode,
-                                   capacity_factor=self.capacity_factor,
+                                   logits_mode=logits_mode, moe=self.moe,
                                    embeds=embeds, positions=positions)
 
     def decode_step(self, params, tokens, cache, pos, lengths, embeds=None):
@@ -106,7 +132,7 @@ class Model:
         if self.is_encdec:
             return encdec.decoder_decode_step(params, self.cfg, tokens, cache, pos, lengths)
         return transformer.decode_step(params, self.cfg, tokens, cache, pos, lengths,
-                                       capacity_factor=self.capacity_factor, embeds=embeds)
+                                       moe=self.moe, embeds=embeds)
 
     def unembed(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden, params["embed"], params.get("head"))
@@ -124,6 +150,20 @@ class Model:
         cache = self._cache(batch, cache_len, torch.device("meta"), kv_quant)
         return tree_bytes(cache)
 
+    def cache_specs(self, batch: int, cache_len: int, kv_quant: bool = False):
+        """The cache's ParamSpecs (shapes and logical axes), in its structure."""
+        if self.is_encdec:
+            return encdec.cache_spec(self.cfg, batch, cache_len)
+        return transformer.cache_spec(self.cfg, batch, cache_len, kv_quant=kv_quant)
+
+    def cache_shapes(self, batch: int, cache_len: int, kv_quant: bool = False):
+        """:meth:`init_cache`'s cache as shape-only stand-ins."""
+        return tree_map(lambda s: fake_tensor(s.shape, transformer.cache_dtype(s, self.dtype)),
+                        self.cache_specs(batch, cache_len, kv_quant))
+
+    def cache_axes(self, kv_quant: bool = False):
+        return axes_tree(self.cache_specs(1, 2, kv_quant))
+
     def _cache(self, batch: int, cache_len: int, device: torch.device, kv_quant: bool):
         if self.is_encdec:
             return encdec.init_cache(self.cfg, batch, cache_len, self.dtype, device)
@@ -140,6 +180,7 @@ class Model:
         return transformer.decode_cache(self.cfg, prefill_cache, cache_len)
 
 
-def build_model(cfg: ModelConfig, capacity_factor: float = 1.25) -> Model:
+def build_model(cfg: ModelConfig, capacity_factor: float = 1.25, **knobs) -> Model:
+    """``knobs``: ``mesh``, ``moe_cap_slack``, ``moe_fsdp_mode``."""
     transformer.check_supported(cfg)
-    return Model(cfg=cfg, capacity_factor=capacity_factor)
+    return Model(cfg=cfg, capacity_factor=capacity_factor, **knobs)

@@ -19,28 +19,60 @@ shared expert ``:249-251``).
   in that same expert order, one row at a time in the model dtype: no
   atomics, so two calls agree bit for bit on the card.
 
-The expert-parallel ``shard_map`` path (``:159-247``, both ``fsdp_mode``s)
-runs only across devices and is not ported (ROADMAP.md).
+**Expert parallelism** (``:152-247``): with a mesh whose ``model`` axis
+has more than one device and divides E, each rank holds ``E / model`` experts
+(d-sharded over the data axes, the FSDP of ``embed_fsdp``) and its block of
+the tokens (sharded over ``pod``/``data`` where they divide, else
+replicated). The router and the aux loss stay replicated. :func:`moe_apply`
+keeps the reference's caller contract, global ``x`` and params in and
+global out: it takes this rank's blocks by the reference's in_specs
+(``common/sharding.py::shard_tensor``), runs :func:`shard_fn` (FSDP mode
+"gather": all-gather the expert weights over the data axes, dispatch
+locally, psum over ``model``) or :func:`shard_fn_partial` (mode
+"partial": gather the tokens instead, d-sliced partial products summed
+over the data axes), and all-gathers the output over the token axes (the
+out_specs). The capacity is per shard-local tokens with the global E, times
+``cap_slack``. Collectives are ``launch/mesh.py::Mesh``'s; the whole branch
+runs under the ``expert_parallel`` scope (``common/scopes.py``), so the
+dry-run's analyzer counts it per rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.scopes import scoped_kernel_vjp
+from repro_torch.common.sharding import P, shard_index, shard_tensor
 from repro_torch.models.layers import ParamSpec, mlp_apply, mlp_spec
+
+
+@dataclass(frozen=True)
+class MoeKnobs:
+    """What a model call threads to each MoE layer: the reference's
+    ``Runtime`` fields ``capacity_factor``, ``mesh``, ``moe_cap_slack`` and
+    ``moe_fsdp_mode``."""
+
+    capacity_factor: float = 1.25
+    mesh: Any = None
+    cap_slack: float = 2.0
+    fsdp_mode: str = "gather"
 
 
 def moe_spec(cfg: ModelConfig) -> Dict[str, object]:
     E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
     s: Dict[str, object] = {
-        "router": ParamSpec((d, E), scale=0.02),
-        "w_gate": ParamSpec((E, d, f)),
-        "w_up": ParamSpec((E, d, f)),
-        "w_down": ParamSpec((E, f, d)),
+        "router": ParamSpec((d, E), ("embed", "experts"), scale=0.02),
+        # expert weights: expert-sharded over `model` and d-sharded over the
+        # data axes (FSDP), gathered or partial-summed in the EP branch
+        "w_gate": ParamSpec((E, d, f), ("experts", "embed_fsdp", "expert_ffn")),
+        "w_up": ParamSpec((E, d, f), ("experts", "embed_fsdp", "expert_ffn")),
+        "w_down": ParamSpec((E, f, d), ("experts", "expert_ffn", "embed_fsdp")),
     }
     if cfg.n_shared_experts:
         s["shared"] = mlp_spec(d, cfg.moe_d_ff * cfg.n_shared_experts, "silu")
@@ -143,10 +175,93 @@ def _expert_ffn_local(
     return _combine(ye, weight, slot)
 
 
-def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+def _local_ids(ids: torch.Tensor, mesh, E_local: int) -> torch.Tensor:
+    """Global expert ids -> this ``model`` rank's, the others' experts
+    mapped to the overflow bucket ``E_local``."""
+    lo = mesh.axis_index("model") * E_local
+    return torch.where((ids >= lo) & (ids < lo + E_local), ids - lo, E_local)
+
+
+def shard_fn(mesh, fsdp, cap, xf_l, ids_l, cw_l, wg_l, wu_l, wd_l):
+    """FSDP mode "gather": all-gather the d-sharded expert weights per layer
+    (train-friendly: weight traffic amortized over many tokens)."""
+    wg_l = mesh.all_gather(wg_l, 1, fsdp)
+    wu_l = mesh.all_gather(wu_l, 1, fsdp)
+    wd_l = mesh.all_gather(wd_l, 2, fsdp)
+    out_l = _expert_ffn_local(xf_l, _local_ids(ids_l, mesh, wg_l.shape[0]), cw_l,
+                              wg_l, wu_l, wd_l, cap)
+    return mesh.all_reduce(out_l, ("model",))
+
+
+def shard_fn_partial(mesh, fsdp, cap_fn, xf_l, ids_l, cw_l, wg_l, wu_l, wd_l):
+    """FSDP mode "partial": the weights stay d-sharded; the tokens are
+    gathered over the data axes, the pre-activations partial-summed there.
+    No weight traffic; activation traffic ~ O(tokens x f)."""
+    E_local = wg_l.shape[0]
+    n_fsdp = int(np.prod([mesh.shape[a] for a in fsdp]))
+    didx = shard_index(fsdp, mesh)
+    T_l, d = xf_l.shape
+    x_g = mesh.all_gather(xf_l, 0, fsdp)
+    ids_g = mesh.all_gather(ids_l, 0, fsdp)
+    cw_g = mesh.all_gather(cw_l, 0, fsdp)
+    T_g, d_l = x_g.shape[0], d // n_fsdp
+    x_slice = x_g[:, didx * d_l:(didx + 1) * d_l]
+    gtok, valid, weight, slot = _dispatch(_local_ids(ids_g, mesh, E_local), cw_g, E_local,
+                                          cap_fn(T_g))
+    xe = x_slice[gtok.reshape(-1)].view(E_local, -1, d_l)
+    xe = torch.where(valid[..., None], xe, torch.zeros((), dtype=xe.dtype, device=xe.device))
+    pre_g = mesh.all_reduce(torch.bmm(xe, wg_l), fsdp)
+    pre_u = mesh.all_reduce(torch.bmm(xe, wu_l), fsdp)
+    ye = torch.bmm(F.silu(pre_g) * pre_u, wd_l)                     # (E_l, cap_g, d_l)
+    out_g = _combine(ye, weight, slot)                                # (T_g, d_l)
+    out_full = mesh.all_gather(out_g, 1, fsdp)
+    out_l = out_full[didx * T_l:(didx + 1) * T_l]
+    return mesh.all_reduce(out_l, ("model",))
+
+
+def _expert_parallel(xf, top_ids, combine, p, cfg: ModelConfig, mesh, cf: float,
+                     cap_slack: float, fsdp_mode: str) -> torch.Tensor:
+    """The reference's ``shard_map`` branch on this rank. Returns (T, d)."""
+    T = xf.shape[0]
+    k, E = cfg.n_experts_per_token, cfg.n_experts
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    fsdp = tuple(a for a in data_axes if mesh.shape[a] > 1)
+    n_data = int(np.prod([mesh.shape[a] for a in data_axes]))
+    if T % max(n_data, 1) == 0 and n_data > 1:
+        xspec, tokens_sharded = P(data_axes, None), True
+    else:
+        xspec, tokens_sharded = P(None, None), False   # decode batch=1: replicated
+    # capacity per SHARD-LOCAL tokens, with the global E
+    T_loc = T // n_data if tokens_sharded else T
+    cap_fn = lambda n: max(8, min(int(_capacity(n, k, E, cf) * cap_slack), n * k))
+    wspec_up = P("model", fsdp if fsdp else None, None)
+    wspec_dn = P("model", None, fsdp if fsdp else None)
+
+    def region(xf, top_ids, combine, w_gate, w_up, w_down):
+        args = [shard_tensor(t, xspec, mesh) for t in (xf, top_ids, combine)]
+        args += [shard_tensor(w_gate, wspec_up, mesh), shard_tensor(w_up, wspec_up, mesh),
+                 shard_tensor(w_down, wspec_dn, mesh)]
+        if fsdp_mode == "partial":
+            out = shard_fn_partial(mesh, fsdp, cap_fn, *args)
+        else:
+            out = shard_fn(mesh, fsdp, cap_fn(T_loc), *args)
+        for dim, entry in enumerate(xspec):         # out_specs: the global tokens
+            if entry is not None:
+                out = mesh.all_gather(out, dim, entry if isinstance(entry, tuple) else (entry,))
+        return out
+
+    return scoped_kernel_vjp("expert_parallel", region)(
+        xf, top_ids, combine, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, mesh=None,
+              capacity_factor: float = 1.25, cap_slack: float = 2.0, fsdp_mode: str = "gather"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN on x (B, S, d). Returns (out (B, S, d), aux_loss fp32 scalar).
-    ``capacity_factor`` 0 means no drop (the capacity of E experts' worth)."""
+    ``capacity_factor`` 0 means no drop (the capacity of E experts' worth).
+    ``mesh``, ``cap_slack`` and ``fsdp_mode`` ("gather" | "partial") drive
+    the expert-parallel branch, as the reference's. The reference's
+    ``batch_spec`` is left out: nothing sets it."""
     B, S, d = x.shape
     T = B * S
     k, E = cfg.n_experts_per_token, cfg.n_experts
@@ -154,9 +269,14 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     logits32 = xf.to(torch.float32) @ p["router"].to(torch.float32)
     top_ids, combine, aux = _router(logits32, k)
     cf = capacity_factor if capacity_factor else float(E)
-    cap = _capacity(T, k, E, cf)
-    out = _expert_ffn_local(xf, top_ids, combine, p["w_gate"], p["w_up"], p["w_down"],
-                            cap).reshape(B, S, d)
+    ep = (mesh is not None and "model" in mesh.axis_names and mesh.shape["model"] > 1
+          and E % mesh.shape["model"] == 0)
+    if ep:
+        out = _expert_parallel(xf, top_ids, combine, p, cfg, mesh, cf, cap_slack,
+                               fsdp_mode).reshape(B, S, d)
+    else:
+        out = _expert_ffn_local(xf, top_ids, combine, p["w_gate"], p["w_up"], p["w_down"],
+                                _capacity(T, k, E, cf)).reshape(B, S, d)
     if cfg.n_shared_experts and "shared" in p:
         out = out + mlp_apply(p["shared"], x, "silu")
     return out, aux.to(torch.float32)

@@ -26,10 +26,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.common.scopes import scoped_kernel_vjp
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import ParamSpec, rms_norm
 
 State = Dict[str, torch.Tensor]     # {"h": (B, H, P, N) fp32, "conv": (B, W-1, C)}
@@ -48,14 +48,15 @@ def ssm_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d_inner = H * P
     d = cfg.d_model
     return {
-        "w_in": ParamSpec((d, 2 * d_inner + 2 * N + H)),
-        "conv_w": ParamSpec((cfg.ssm_conv_width, d_conv), init="normal", scale=0.5),
-        "conv_b": ParamSpec((d_conv,), init="zeros"),
-        "A_log": ParamSpec((H,), init="zeros"),
-        "dt_bias": ParamSpec((H,), init="zeros"),
-        "D": ParamSpec((H,), init="ones"),
-        "norm": ParamSpec((d_inner,), init="zeros"),
-        "w_out": ParamSpec((d_inner, d)),
+        "w_in": ParamSpec((d, 2 * d_inner + 2 * N + H), ("embed", "ssm_inner")),
+        "conv_w": ParamSpec((cfg.ssm_conv_width, d_conv), ("conv", "ssm_inner"),
+                            init="normal", scale=0.5),
+        "conv_b": ParamSpec((d_conv,), ("ssm_inner",), init="zeros"),
+        "A_log": ParamSpec((H,), ("ssm_heads",), init="zeros"),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), init="zeros"),
+        "D": ParamSpec((H,), ("ssm_heads",), init="ones"),
+        "norm": ParamSpec((d_inner,), ("ssm_inner",), init="zeros"),
+        "w_out": ParamSpec((d_inner, d), ("ssm_inner", "embed")),
     }
 
 
@@ -83,65 +84,21 @@ def _discretize(dt_raw: torch.Tensor, A_log: torch.Tensor):
     return dt, dt * A                                          # dt, a = log-decay
 
 
-def _chunk_scan(xc, dtc, ac, Bc, Cc, h):
-    """The reference's scan body over chunks: each input is (nc, B, Q, ...)
-    with the chunks leading; h (B, H, P, N) fp32 is carried across them.
-    Returns (y chunks (nc, B, Q, H, P) fp32, the last h)."""
-    f32 = torch.float32
-    Q = xc.shape[2]
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xc.device))
-    ys = []
-    for x_c, dt_c, a_c, B_c, C_c in zip(xc, dtc, ac, Bc, Cc):
-        x_c, B_c, C_c = x_c.to(f32), B_c.to(f32), C_c.to(f32)
-        cum = torch.cumsum(a_c, dim=1)                          # (B, Q, H)
-        # intra-chunk: the exponent masked before the exp (module docstring)
-        diff = cum[:, :, None, :] - cum[:, None, :, :]          # (B, Q, Q, H)
-        L = torch.exp(torch.where(tri[None, :, :, None], diff, float("-inf")))
-        CB = torch.einsum("bqn,bkn->bqk", C_c, B_c)              # (B, Q, Q)
-        scores = CB[..., None] * L * dt_c[:, None, :, :]        # (B, Q, Q, H)
-        y_intra = torch.einsum("bqkh,bkhp->bqhp", scores, x_c)
-        # the carried state's contribution
-        y_inter = torch.einsum("bqn,bqh,bhpn->bqhp", C_c, torch.exp(cum), h)
-        # the new carried state
-        cum_last = cum[:, -1:, :]                               # (B, 1, H)
-        decay_to_end = torch.exp(cum_last - cum) * dt_c         # (B, Q, H)
-        state_new = torch.einsum("bkn,bkh,bkhp->bhpn", B_c, decay_to_end, x_c)
-        h = torch.exp(cum_last[:, 0, :])[:, :, None, None] * h + state_new
-        ys.append(y_intra + y_inter)
-    return torch.stack(ys), h
-
-
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                 Cm: torch.Tensor, chunk: int, h0: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD in plain PyTorch, differentiable by autograd: x (B, S, H,
-    P), dt and a (B, S, H) fp32 (post-softplus step, log-decay dt * A), Bm
-    and Cm (B, S, N), over chunks of Q = min(chunk, S) with S padded to a
-    multiple of Q, from the state ``h0`` (B, H, P, N) fp32 (zeros if None).
-    Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) fp32).
+    """The training scan: ``kernels/ref.py::ssd_chunked`` over chunks of
+    ``chunk`` from the state ``h0`` (zeros if None), differentiable by
+    autograd. Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) fp32).
 
-    The chunk loop runs under ``torch.utils.checkpoint``: the backward
-    recomputes it, so the (B, Q, Q, H) tiles are not kept between the
-    passes, the reference's ``scoped_kernel_vjp`` semantics."""
-    B, S, H, P = x.shape
-    N = Bm.shape[-1]
-    Q = min(chunk, S)
-    pad = (-S) % Q
-    if pad:
-        x, dt, a, Bm, Cm = (F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad])
-                            for t in (x, dt, a, Bm, Cm))
-    Sp = S + pad
-    nc = Sp // Q
-
-    def to_chunks(t):
-        return torch.movedim(t.reshape((B, nc, Q) + t.shape[2:]), 1, 0)
-
+    It runs under ``scoped_kernel_vjp("fusedkernel_ssd_scan")``
+    (``common/scopes.py``), as the reference's chunk loop: the backward
+    recomputes it, so the (B, Q, Q, H) tiles are not kept between the passes."""
     if h0 is None:
-        h0 = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
-    yc, h = torch.utils.checkpoint.checkpoint(
-        _chunk_scan, *(to_chunks(t) for t in (x, dt, a, Bm, Cm)), h0, use_reentrant=False)
-    y = torch.movedim(yc.to(x.dtype), 0, 1).reshape(B, Sp, H, P)[:, :S]
-    return y, h
+        B, _, H, P = x.shape
+        h0 = torch.zeros((B, H, P, Bm.shape[-1]), dtype=torch.float32, device=x.device)
+    scan = lambda *t: ref.ssd_chunked(*t[:5], chunk, t[5])
+    return scoped_kernel_vjp("fusedkernel_ssd_scan", scan)(x, dt, a, Bm, Cm, h0)
 
 
 def _layer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, scan):

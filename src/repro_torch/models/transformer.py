@@ -90,11 +90,13 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.pytree import tree_map
+from repro_torch.common.scopes import scope
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ACTS, ParamSpec, embed_spec, mlp_apply,
                                        mlp_spec, rms_norm, unembed)
-from repro_torch.models.moe import moe_apply, moe_spec
+from repro_torch.models.moe import MoeKnobs, moe_apply, moe_spec
 from repro_torch.models.rope import (angles_by_base, positions_from_tokens,
                                      text_mrope_positions)
 
@@ -177,7 +179,7 @@ def _angles(cfg: ModelConfig, kinds: List[str], positions: torch.Tensor):
 
 
 def _norm(cfg: ModelConfig) -> ParamSpec:
-    return ParamSpec((cfg.d_model,), init="zeros")
+    return ParamSpec((cfg.d_model,), ("embed",), init="zeros")
 
 
 def shared_block_spec(cfg: ModelConfig, act: str = "silu") -> Dict[str, Any]:
@@ -204,7 +206,7 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     spec: Dict[str, Any] = {"embed": embed_spec(cfg.vocab_size, cfg.d_model),
                             "final_norm": _norm(cfg)}
     if not cfg.tie_embeddings:
-        spec["head"] = ParamSpec((cfg.d_model, cfg.vocab_size))
+        spec["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     spec["layers"] = [_layer_spec(cfg, kind) for kind in layer_kinds(cfg)]
     if cfg.family == "hybrid":
         spec["shared"] = shared_block_spec(cfg)
@@ -216,12 +218,13 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _apply_ffn(lp, x, cfg: ModelConfig, capacity_factor: float):
+def _apply_ffn(lp, x, cfg: ModelConfig, moe: MoeKnobs):
     """The layer's FFN on its residual: the MLP, or the MoE experts of a
     layer that has them. Returns (x, the router's aux loss, None for an MLP)."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        y, aux = moe_apply(lp["moe"], h, cfg, capacity_factor=capacity_factor)
+        y, aux = moe_apply(lp["moe"], h, cfg, mesh=moe.mesh, capacity_factor=moe.capacity_factor,
+                           cap_slack=moe.cap_slack, fsdp_mode=moe.fsdp_mode)
         return x + y, aux
     return x + mlp_apply(lp["mlp"], h, cfg.act), None
 
@@ -244,13 +247,13 @@ def _inputs(params, cfg: ModelConfig, tokens, embeds, positions):
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
             attn_valid: Optional[torch.Tensor] = None, logits_mode: str = "all",
-            capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None,
+            moe: MoeKnobs = MoeKnobs(), embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None):
     """Prefill pass over (B, S) tokens, or over ``embeds`` (B, S, d) in the
     model dtype (the VLM's patch + text embeddings) at ``positions`` ((B, S),
     or (3, B, S) with M-RoPE; the text positions when None). ``attn_valid``
     (B, S) marks the valid (right-padded) prompt positions; a MoE layer
-    routes every position, pads included, with ``capacity_factor``. Returns
+    routes every position, pads included, with ``moe``'s knobs. Returns
     (logits (B, S, V) fp32 or None with ``logits_mode="none"``, hidden (B,
     S, d), the per-layer cache)."""
     kinds = layer_kinds(cfg)
@@ -273,7 +276,7 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch.Ten
         q, k, v = attn.qkv_project(p["attn"], h, cfg, angles(kind))
         o = attn.prefill_attention(q, k, v, window=_window(cfg, kind),
                                    kv_lengths=kv_lengths)
-        x, _ = _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, capacity_factor)
+        x, _ = _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, moe)
         cache.append((k, v))
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (unembed(hidden, params["embed"], params.get("head"))
@@ -293,27 +296,47 @@ def _slots(cfg: ModelConfig, kind: str, cache_len: int) -> int:
     return min(W, cache_len) if W else cache_len
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype,
-               device: torch.device, kv_quant: bool = False) -> Cache:
-    """Zeroed decode cache: K/V (B, Sc, KV, hd) in the model dtype per
-    attention layer (Sc from :func:`_slots`), or with ``kv_quant`` int8 K/V
-    and fp32 scales (B, Sc, KV); h (B, H, P, N) fp32 and conv (B, W-1, C) in
-    the model dtype per SSM layer."""
-    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
-    cache: Cache = []
+KV_AXES = ("batch", "cache_seq", "cache_kv_heads", "head_dim")
+
+
+def cache_spec(cfg: ModelConfig, batch: int, cache_len: int, kv_quant: bool = False):
+    """The decode cache as ParamSpecs (shapes and logical axes), in the
+    cache's structure: K/V (B, Sc, KV, hd) per attention layer (Sc from
+    :func:`_slots`), or with ``kv_quant`` int8 K/V and fp32 scales (B, Sc,
+    KV); h (B, H, P, N) fp32 and conv (B, W-1, C) per SSM layer. The axes
+    are the reference's ``cache_spec``'s less its leading ``layers``."""
+    cache = []
     for kind in layer_kinds(cfg):
         if kind == "ssm":
             H, P, N, d_conv = ssm_mod.ssm_dims(cfg)
-            cache.append({"h": zeros((batch, H, P, N), torch.float32),
-                          "conv": zeros((batch, cfg.ssm_conv_width - 1, d_conv), dtype)})
+            cache.append({
+                "h": ParamSpec((batch, H, P, N), ("batch", "ssm_heads", None, None),
+                               init="f32"),
+                "conv": ParamSpec((batch, cfg.ssm_conv_width - 1, d_conv),
+                                  ("batch", None, "ssm_inner"))})
             continue
         shape = (batch, _slots(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim)
         if kv_quant:
-            cache.append((zeros(shape, torch.int8), zeros(shape, torch.int8),
-                          zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32)))
+            kv = ParamSpec(shape, KV_AXES, init="int8")
+            scale = ParamSpec(shape[:3], KV_AXES[:3], init="f32")
+            cache.append((kv, kv, scale, scale))
         else:
-            cache.append((zeros(shape, dtype), zeros(shape, dtype)))
+            kv = ParamSpec(shape, KV_AXES)
+            cache.append((kv, kv))
     return cache
+
+
+def cache_dtype(spec: ParamSpec, dtype: torch.dtype) -> torch.dtype:
+    """int8 for quantized K/V, fp32 for their scales and the SSM state, the
+    model dtype else."""
+    return {"int8": torch.int8, "f32": torch.float32}.get(spec.init, dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype,
+               device: torch.device, kv_quant: bool = False) -> Cache:
+    """Zeroed decode cache of :func:`cache_spec`."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=cache_dtype(s, dtype), device=device),
+                    cache_spec(cfg, batch, cache_len, kv_quant))
 
 
 def decode_cache(cfg: ModelConfig, prefill_cache: Cache, cache_len: int) -> Cache:
@@ -361,7 +384,7 @@ def _dequantize(c: torch.Tensor, s: torch.Tensor, dtype: torch.dtype) -> torch.T
 
 def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch.Tensor],
                 cache: Cache, pos: torch.Tensor, lengths: torch.Tensor,
-                capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None):
+                moe: MoeKnobs = MoeKnobs(), embeds: Optional[torch.Tensor] = None):
     """One decode step for (B,) new tokens, or their ``embeds`` ((B, d) or
     (B, 1, d)), at positions ``pos`` (B,), which M-RoPE gives to all three
     streams; ``lengths`` (B,) int32 is each row's valid cache length AFTER
@@ -400,12 +423,13 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch
             ks, vs = cache[i][2:]
             kc[bidx, at], ks[bidx, at] = _quantize_kv(k[:, 0])
             vc[bidx, at], vs[bidx, at] = _quantize_kv(v[:, 0])
-            kc, vc = _dequantize(kc, ks, q.dtype), _dequantize(vc, vs, q.dtype)
+            with scope("fusedkernel_decode_attention_dequant"):
+                kc, vc = _dequantize(kc, ks, q.dtype), _dequantize(vc, vs, q.dtype)
         else:
             kc[bidx, at] = k[:, 0]
             vc[bidx, at] = v[:, 0]
         o = attn.decode_attention(q, kc, vc, n)
-        x, _ = _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, capacity_factor)
+        x, _ = _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, moe)
     hidden = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     logits = unembed(hidden, params["embed"], params.get("head"))
     return logits, hidden
@@ -416,7 +440,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch
 # ---------------------------------------------------------------------------
 
 
-def _train_layer(p, x, cfg: ModelConfig, kind: str, angles, capacity_factor: float):
+def _train_layer(p, x, cfg: ModelConfig, kind: str, angles, moe: MoeKnobs):
     """One layer of the training forward (``p`` is ``params["shared"]`` for
     a ``shared_attn`` layer). Returns (x, the router's aux loss or None)."""
     if kind == "ssm":
@@ -425,7 +449,7 @@ def _train_layer(p, x, cfg: ModelConfig, kind: str, angles, capacity_factor: flo
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(p["attn"], h, cfg, angles)
     o = attn.blocked_attention(q, k, v, window=_window(cfg, kind))
-    return _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, capacity_factor)
+    return _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, moe)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -439,7 +463,7 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 def train_forward(params: Dict[str, Any], cfg: ModelConfig,
                   tokens: Optional[torch.Tensor] = None, remat: bool = False,
-                  capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None,
+                  moe: MoeKnobs = MoeKnobs(), embeds: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None):
     """Full-sequence causal pass for training, differentiable by autograd,
     over tokens or ``embeds`` at ``positions`` (as :func:`forward`).
@@ -454,7 +478,7 @@ def train_forward(params: Dict[str, Any], cfg: ModelConfig,
     shared = params.get("shared")
     for kind, lp in zip(kinds, params["layers"]):
         p = shared if kind == "shared_attn" else lp
-        args = (p, x, cfg, kind, angles(kind), capacity_factor)
+        args = (p, x, cfg, kind, angles(kind), moe)
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(_train_layer, *args,
                                                        use_reentrant=False)
@@ -468,7 +492,7 @@ def train_forward(params: Dict[str, Any], cfg: ModelConfig,
 
 def lm_loss(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             loss_mask: Optional[torch.Tensor] = None, remat: bool = False,
-            capacity_factor: float = 1.25, embeds: Optional[torch.Tensor] = None,
+            moe: MoeKnobs = MoeKnobs(), embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None):
     """Next-token cross-entropy of ``tokens`` (the targets, also the input
     unless ``embeds`` is given), the mean over ``loss_mask[:, 1:]`` where a
@@ -476,7 +500,7 @@ def lm_loss(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     loss. Returns (that total, {"loss": the cross-entropy, "aux": the router
     loss}), as the reference's ``lm_loss`` (``transformer.py:506-520``)."""
     logits, _, aux = train_forward(params, cfg, tokens, remat=remat,
-                                   capacity_factor=capacity_factor, embeds=embeds,
+                                   moe=moe, embeds=embeds,
                                    positions=positions)
     targets = tokens[:, 1:].to(torch.long)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)

@@ -46,8 +46,18 @@ def param_groups(cfg: ModelConfig, names) -> List[Group]:
     """The reference's leaves over the port's parameter paths: each weight of
     a segment's ``layer_j`` stacks the blocks' copies (``layers/<i>/...``
     for the segment's layers of kind j, block by block); the embedding, the
-    final norm, the head and the shared block are leaves of their own."""
+    final norm, the head and the shared block are leaves of their own. An
+    encoder-decoder's ``encoder/<i>/...`` and ``decoder/<i>/...`` weights
+    stack over i, as the reference's stacked trees."""
     names = list(names)
+    if cfg.family == "encdec":
+        groups = [Group((n,)) for n in names if not n.startswith(("encoder/", "decoder/"))]
+        for stack, n_layers in (("encoder", cfg.n_encoder_layers), ("decoder", cfg.n_layers)):
+            first = f"{stack}/0/"
+            for leaf in [n[len(first):] for n in names if n.startswith(first)]:
+                groups.append(Group(tuple(f"{stack}/{i}/{leaf}" for i in range(n_layers)),
+                                    stacked=True))
+        return groups
     groups = [Group((n,)) for n in names if not n.startswith("layers/")]
     offset = 0
     for seg in layer_plan(cfg):

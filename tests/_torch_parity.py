@@ -105,3 +105,52 @@ def carry_reference_seeds(monkeypatch, seeds, *modules):
 
         monkeypatch.setattr(mod, "train_predictor", carried)
     return pairs
+
+
+# --------------------------------------------------------------------------
+# the reference's stacked trees in the port's per-layer layout
+# --------------------------------------------------------------------------
+
+def port_layout(tree, cfg):
+    """The layout counterpart of ``models/convert.py::from_jax_params`` for
+    trees of shapes, axes or specs: a reference parameter tree (or a
+    ``cache_spec`` tree) laid out as the port's, each stacked leaf standing,
+    as it is, for every layer it stacks. A cache entry becomes the port's
+    ``(k, v[, k_s, v_s])`` tuple or ``{"h", "conv"}`` dict."""
+    from repro_torch.models.transformer import layer_plan
+
+    if cfg.family == "encdec":
+        if "k" in tree:                                        # decoder_cache_spec
+            return [dict(tree) for _ in range(cfg.n_layers)]
+        return {"embed": tree["embed"], "enc_final_ln": tree["enc_final_ln"],
+                "dec_final_ln": tree["dec_final_ln"],
+                "encoder": [tree["encoder"]] * cfg.n_encoder_layers,
+                "decoder": [tree["decoder"]] * cfg.n_layers}
+    segments = tree if isinstance(tree, list) else tree["segments"]
+    layers = []
+    for seg, plan in zip(segments, layer_plan(cfg)):
+        names = sorted(seg, key=lambda s: int(s.split("_")[1]))
+        for _ in range(plan.n_blocks):
+            layers.extend(seg[n] for n in names)
+    if isinstance(tree, list):                                  # cache_spec
+        return [e if "h" in e else tuple(e[k] for k in ("k", "v", "k_s", "v_s") if k in e)
+                for e in layers]
+    out = {k: v for k, v in tree.items() if k != "segments"}
+    out["layers"] = layers
+    return out
+
+
+def flat_leaves(tree, is_leaf, prefix=""):
+    """(path, leaf) pairs in ``repro_torch.common.pytree.tree_items`` order."""
+    if is_leaf(tree):
+        yield prefix[:-1], tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat_leaves(tree[k], is_leaf, f"{prefix}{k}/")
+    else:
+        for i, v in enumerate(tree):
+            yield from flat_leaves(v, is_leaf, f"{prefix}{i}/")
+
+
+def is_axes(x):
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str) for a in x)

@@ -268,3 +268,28 @@ def test_engine_and_serve_refuse_an_encoder_decoder(models):
         RealEngine(m, params)
     with pytest.raises(SystemExit, match="enc_embeds"):
         serve.main(["--mode", "real", "--device", "cpu", "--model", ARCH])
+
+
+def test_decode_on_a_ring_of_the_window(models):
+    """With ``attn_window`` (the dry-run's long_500k gives Whisper 8,192) the
+    self cache is a ring of ``min(window, cache_len)`` slots, as the
+    reference's ``decoder_cache_spec``: 12 teacher-forced steps from zeroed
+    caches on a ring of 8, wrapping it, against the reference's steps."""
+    jm, jparams, m, params = models
+    W, steps, B = 8, 12, 2
+    jmw = jbuild_model(jm.cfg.with_overrides(attn_window=W))
+    mw = build_model(m.cfg.with_overrides(attn_window=W))
+    jcache = jmw.init_cache(B, 64)
+    cache = mw.init_cache(B, 64, device=CPU)
+    assert [tuple(e["k"].shape) for e in cache] == [tuple(jcache["k"].shape[1:])] * 2
+    assert tuple(cache[0]["k"].shape)[1] == W
+    forced = np.random.default_rng(2).integers(3, m.cfg.vocab_size, (steps, B)).astype(np.int32)
+    rt = Runtime.local()
+    for t, tok in enumerate(forced):
+        pos = np.full((B,), t, np.int32)
+        jlogits, _, jcache = jmw.decode_step(
+            jparams, {"tokens": jnp.asarray(tok), "pos": jnp.asarray(pos),
+                      "lengths": jnp.asarray(pos + 1)}, jcache, rt)
+        logits, _ = mw.decode_step(params, torch.from_numpy(tok).long(), cache,
+                                   torch.from_numpy(pos), torch.from_numpy(pos + 1))
+        near(logits, jlogits)
