@@ -219,6 +219,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3181,7 +3182,9 @@ PORT_KERNELS = ("flash_fwd_", "decode_fwd", "ssd_scan_", "prod_head_")
 def device_profile(torch, fn, label: str, top: int = 6) -> None:
     """Device busy share of one call of ``fn`` and the kernels that take
     most of its device time (torch.profiler, CUDA kernel events only). The
-    profiler adds host time, so the wall time here is above the event timing."""
+    profiler adds host time, so the wall time here is above the event timing.
+    Returns the wall and busy ms, the launches and each kernel's ms (None
+    without device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3202,7 +3205,7 @@ def device_profile(torch, fn, label: str, top: int = 6) -> None:
     busy = sum(kernels.values())
     if not busy:
         print(f"profile {label}: device time not measured (no kernel events)")
-        return
+        return None
     print(f"profile {label}: wall {wall_ms:.2f} ms under the profiler, device busy "
           f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), {len(kernels)} kernel names, "
           f"{n_launch} kernel launches ({1e3 * wall_ms / n_launch:.1f} us of wall each)")
@@ -3211,13 +3214,20 @@ def device_profile(torch, fn, label: str, top: int = 6) -> None:
         # the top kernels, and every kernel of the port
         if i < top or any(k in name for k in PORT_KERNELS):
             print(f"  {100 * ms / busy:5.1f}%  {ms:8.3f} ms  {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": n_launch, "kernels": kernels}
 
 
 # the ep phase: one Qwen3-MoE-235B-A22B MoE layer at full width (d=4096, 128
-# experts, top-8, moe_d_ff=1536, bf16) over 4 gloo ranks that share the card,
-# T = 4 x 128 tokens; each (mesh, FSDP mode) of models/moe.py's EP branch
+# experts, top-8, moe_d_ff=1536, bf16), T = 4 x 128 tokens, over 4 ranks
+# (gloo on one card here; NCCL, one rank per card, in
+# tests/test_torch_moe_ep_nccl.py); each (mesh, FSDP mode) of models/moe.py's
+# EP branch
 EP_CASES = (((2, 2), "gather"), ((2, 2), "partial"), ((1, 4), "gather"))
 EP_RANKS = 4
+EP_LEAVES = ("x", "router", "w_gate", "w_up", "w_down")
+# the served mesh of the NCCL run: Qwen3-MoE at the single-card phase's depth
+MESH_SERVE = ("qwen3-moe-235b-a22b", 12, 2)          # name, layers, generations
+MESH_SERVE_ONE_CARD = "177.6 tokens/s, 2,014 launches a decode step, 64.68 GB peak"
 
 
 def _free_port() -> int:
@@ -3227,47 +3237,114 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def ep_phase(torch, counters):
-    """The expert-parallel MoE (``models/moe.py``) in 4 processes on this
-    card, over gloo (NCCL refuses two ranks on one GPU; gloo is a host
-    transport, so ``launch/mesh.py`` stages each collective through host
-    memory and the times below are no measure of NVLink). Each rank holds
-    the layer's global seeded weights (4.8 GB) and runs moe_apply on the
+def _moved(kind: str, n: int, nbytes: int) -> float:
+    """Bytes a rank moves in one collective, nccl-tests' bus convention: an
+    all-reduce 2 (n - 1) / n of its buffer, an all-gather and a
+    reduce-scatter (n - 1) / n of the gathered or scattered buffer
+    (``nbytes`` is what a rank puts in)."""
+    return {"all_reduce": 2 * (n - 1) / n * nbytes, "all_gather": (n - 1) * nbytes,
+            "reduce_scatter": (n - 1) / n * nbytes}[kind]
+
+
+def _bus_rates(colls) -> str:
+    """The collectives of one call by (kind, ranks, bytes a rank puts in):
+    calls, ms each (host clock between device synchronisations, so a rank's
+    wait for the others counts) and the bus rate."""
+    by = {}
+    for kind, _, n, nbytes, sec in colls:
+        c = by.setdefault((kind, n, nbytes), [0, 0.0])
+        c[0] += 1
+        c[1] += sec
+    return "; ".join(f"{kind} over {n} of {nbytes / 1e6:.2f} MB x{calls}: "
+                     f"{1e3 * sec / calls:.3f} ms each, bus "
+                     f"{_moved(kind, n, nbytes) * calls / sec / 1e9:.1f} GB/s"
+                     for (kind, n, nbytes), (calls, sec) in sorted(by.items()))
+
+
+def _bus_sweep(torch, dist, mesh, colls, reps: int = 10):
+    """Each distinct collective of ``colls`` alone at its size: a warm-up
+    call, the ranks meet at a barrier, then ``reps`` calls between CUDA
+    events. Returns [kind, ranks, bytes a rank puts in, ms each, bus GB/s]."""
+    out = []
+    for kind, axes, n, nbytes in sorted({(k, tuple(a), n, b) for k, a, n, b, _ in colls}):
+        t = torch.ones(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+        mesh._run(kind, t, axes)
+        dist.barrier()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            mesh._run(kind, t, axes)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        out.append([kind, n, nbytes, ms, _moved(kind, n, nbytes) / ms / 1e6])
+    return out
+
+
+def ep_phase(torch, counters, backend: str = "gloo"):
+    """The expert-parallel MoE (``models/moe.py``) in 4 processes
+    (``chip_smoke.py --phase ep RANK PORT DIR BACKEND``, ``ep_child``). Over
+    gloo (this script) the 4 ranks share this card: NCCL refuses two ranks
+    on one GPU, and gloo is a host transport, so ``launch/mesh.py`` stages
+    each collective through host memory and the times are no measure of
+    NVLink. Over NCCL (tests/test_torch_moe_ep_nccl.py, 4 cards) each rank
+    has a card of its own and the collectives run over NVLink; nothing falls
+    back to gloo. Each rank holds the layer's global seeded weights (4.8 GB;
+    their checksums all-gathered must agree) and runs moe_apply on the
     global tokens. Checks: at no drop (capacity factor 0, slack 1) each
     mode's output within 2e-2 of max|out| of the single-device path on the
-    card (bf16; the psum over ``model`` sums in another order); at the
-    defaults (1.25, 2.0) a second call bit-identical. Prints the pairs each
-    shard drops at the defaults, each mode's time per rank (CUDA events) and
-    the collectives' share of it. No kernel runs on this path (the expert
-    products are batched matmuls, as the reference's einsums)."""
-    out_dir = ROOT / "build" / "chip_smoke_ep"
+    card (bf16; the psum over ``model`` sums in another order), and the
+    gradient of sum(y * c) for a seeded cotangent c (over NCCL on all 4 x
+    128 tokens; over gloo on the first 128, since four ranks' expert
+    buffers and gradients at 512 tokens would pass one card's memory): x's
+    and the router's whole on every rank, each expert weight's on the
+    rank's block and zero elsewhere, each within 2e-2 of the leaf's
+    max|grad| of the single-device gradient; at the defaults (1.25, 2.0) a
+    second call bit-identical. Prints the pairs each shard drops at the
+    defaults, each mode's forward and backward time per rank (CUDA events),
+    the collectives' share and each collective's bus rate, over NCCL also
+    each collective alone at its size. No kernel runs on this path (the expert
+    products are batched matmuls, as the reference's einsums). Over NCCL the
+    ranks then serve Qwen3-MoE through a (1, 4) mesh (``mesh_serve``)."""
+    out_dir = ROOT / "build" / f"chip_smoke_ep_{backend}"
     out_dir.mkdir(parents=True, exist_ok=True)
     for f in out_dir.glob("rank*.json"):
         f.unlink()
     port = _free_port()
     t0 = time.perf_counter()
+    # where four ranks share a card, expandable segments lose less of each
+    # rank's cache to fragmentation
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "ep",
-                               str(r), str(port), str(out_dir)], cwd=ROOT,
+                               str(r), str(port), str(out_dir), backend], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(EP_RANKS)]
     logs = []
     try:
         for proc in procs:
-            logs.append(proc.communicate(timeout=400)[0])
+            logs.append(proc.communicate(timeout=600)[0])
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for r, (proc, log) in enumerate(zip(procs, logs)):
-        check(proc.returncode == 0, f"ep: rank {r} exited {proc.returncode}:\n{log[-3000:]}")
+    failed = [f"rank {r} exited {proc.returncode}:\n{log[-2000:]}"
+              for r, (proc, log) in enumerate(zip(procs, logs)) if proc.returncode != 0]
+    check(not failed, "ep: " + "\n".join(failed))
     res = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(EP_RANKS)]
-    print(f"ep: 4 gloo ranks on one card, {time.perf_counter() - t0:.1f} s wall in all; "
-          f"peak memory per rank (GB) {[round(x['peak_gb'], 2) for x in res]}, "
-          f"{sum(x['peak_gb'] for x in res):.2f} GB together")
+    where = "sharing one card" if backend == "gloo" else "one per card"
+    print(f"ep: 4 {backend} ranks {where} ({res[0]['device']}), "
+          f"{time.perf_counter() - t0:.1f} s wall in all; peak memory per rank (GB) "
+          f"{[round(x['peak_gb'], 2) for x in res]}, {sum(x['peak_gb'] for x in res):.2f} GB "
+          f"together; seeded weights the same on every rank (checksums all-gathered) "
+          f"{[x['same_weights'] for x in res]}")
+    check(all(x["same_weights"] for x in res), "ep: the ranks' seeded weights differ")
     for case in res[0]["cases"]:
         per_rank = [x["cases"][case] for x in res]
         ref = res[0]["cases"][case]
+        transport = ("gloo through host memory: not an NVLink time" if backend == "gloo"
+                     else "NCCL")
         print(f"ep {case}: no-drop output against the single-device path max|err| "
               f"{ref['err']:.4g} at max|out| {ref['scale']:.4g} ({ref['err'] / ref['scale']:.3g} "
               f"of it; tolerance 2e-2); defaults: second call bit-identical "
@@ -3275,19 +3352,79 @@ def ep_phase(torch, counters):
               f"{[x['dropped'] for x in per_rank]} of {[x['pairs'] for x in per_rank]} "
               f"at capacity {ref['cap']}; ms per call per rank (CUDA events) "
               f"{[round(x['ms'], 2) for x in per_rank]}, collectives' share "
-              f"{[round(x['coll_ms'] / x['ms'], 3) for x in per_rank]} (gloo through host "
-              f"memory: not an NVLink time)")
+              f"{[round(x['coll_ms'] / x['ms'], 3) for x in per_rank]} ({transport})")
+        print(f"ep {case}: no-drop gradient of sum(y * c) on {ref['bwd_rows']} x 128 tokens "
+              f"against the single-device one "
+              + ", ".join(f"{k} max|err| {ref['grad_err'][k]:.4g} at max|grad| "
+                          f"{ref['grad_scale'][k]:.4g} ({ref['grad_err'][k] / ref['grad_scale'][k]:.3g})"
+                          for k in EP_LEAVES)
+              + f" (rank 0's block of each weight; tolerance 2e-2); each rank's weight "
+              f"gradients zero outside its block {[x['zero_outside'] for x in per_rank]}, x's "
+              f"and the router's the same on every rank {ref['grads_agree']}; backward ms per "
+              f"rank {[round(x['bwd_ms'], 2) for x in per_rank]}, collectives' share "
+              f"{[round(x['bwd_coll_ms'] / x['bwd_ms'], 3) for x in per_rank]}")
+        print(f"ep {case}: rank 0's collectives, timed default call: {_bus_rates(ref['colls'])}; "
+              f"backward: {_bus_rates(ref['bwd_colls'])}")
+        if backend == "nccl":
+            print(f"ep {case}: rank 0's collectives alone at these sizes (10 calls after a "
+                  f"barrier, CUDA events): " + "; ".join(
+                      f"{k} over {n} of {b / 1e6:.2f} MB: {ms:.4f} ms, bus {gbs:.1f} GB/s"
+                      for k, n, b, ms, gbs in ref["bus"])
+                  + " (NVLink's data-sheet rate: 450 GB/s each way)")
         check(ref["err"] <= 2e-2 * ref["scale"], f"ep {case}: differs from the single device")
+        for k in EP_LEAVES:
+            check(ref["grad_err"][k] <= 2e-2 * ref["grad_scale"][k],
+                  f"ep {case}: the gradient of {k} differs from the single device's")
+        check(all(x["zero_outside"] for x in per_rank),
+              f"ep {case}: a weight gradient is nonzero outside the rank's block")
+        check(ref["grads_agree"], f"ep {case}: x's or the router's gradient differs between ranks")
         check(all(x["same"] for x in per_rank), f"ep {case}: a second call differs")
         check(all(x["finite"] for x in per_rank), f"ep {case}: output not finite")
     launches = {k: sum(x["launches"][k] for x in res) for k in counters}
     print(f"ep: launches {json.dumps(launches)} (no kernel on the EP path)")
     check(not any(launches.values()), "ep: a kernel launched on the EP path")
+    if backend == "nccl":
+        mesh_serve_report([x["serve"] for x in res])
     return launches
 
 
-def ep_child(torch, counters, rank: int, port: int, out_dir: Path) -> None:
-    """One rank of ``ep_phase`` (``chip_smoke.py --phase ep RANK PORT DIR``)."""
+def _timed_collectives(torch, mesh, log):
+    """Time each of ``mesh``'s collectives (host clock between device
+    synchronisations) into ``log`` as (kind, axes, ranks, bytes in,
+    seconds)."""
+    run = mesh._run
+
+    def timed_run(kind, t, axes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(kind, t, axes)
+        torch.cuda.synchronize()
+        log.append((kind, axes, mesh._size(axes), t.numel() * t.element_size(),
+                    time.perf_counter() - t0))
+        return out
+
+    mesh._run = timed_run
+    return run
+
+
+def _checksums_agree(torch, dist, backend, tensors) -> bool:
+    """Whether every rank holds the same ``tensors``: their sums and norms
+    in fp64, all-gathered and compared exactly."""
+    sums = torch.stack([v for t in tensors for v in (t.sum(dtype=torch.float64),
+                                                     torch.linalg.vector_norm(
+                                                         t, dtype=torch.float64))])
+    sums = sums if backend == "nccl" else sums.cpu()
+    every = [torch.empty_like(sums) for _ in range(EP_RANKS)]
+    dist.all_gather(every, sums)
+    return all(torch.equal(e, every[0]) for e in every)
+
+
+def ep_child(torch, counters, rank: int, port: int, out_dir: Path,
+             backend: str = "gloo") -> None:
+    """One rank of ``ep_phase`` (``chip_smoke.py --phase ep RANK PORT DIR
+    [BACKEND]``): gloo ranks share card 0, an NCCL rank takes card RANK."""
+    import datetime
+
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3295,73 +3432,332 @@ def ep_child(torch, counters, rank: int, port: int, out_dir: Path) -> None:
     from repro_torch.models import moe
     from repro_torch.models.layers import init_tree
 
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=EP_RANKS)
-    dev = torch.device("cuda")
+    init = dict(init_method=f"tcp://localhost:{port}", rank=rank, world_size=EP_RANKS,
+                timeout=datetime.timedelta(seconds=600))
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+        dist.init_process_group("nccl", device_id=dev, **init)
+    else:
+        dev = torch.device("cuda")
+        dist.init_process_group("gloo", **init)
     cfg = get_config("qwen3-moe-235b-a22b")
+    E, d = cfg.n_experts, cfg.d_model
     p = init_tree(moe.moe_spec(cfg), torch.Generator(device=dev).manual_seed(0),
                   torch.bfloat16, dev)
-    x = torch.randn((4, 128, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+    x = torch.randn((4, 128, d), generator=torch.Generator(device=dev).manual_seed(1),
                     device=dev).to(torch.bfloat16)
+    c = torch.randn((4, 128, d), generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev)
+    same_weights = _checksums_agree(torch, dist, backend, [x, c, *p.values()])
     meshes = {shape: make_test_mesh(*shape) for shape in {s for s, _ in EP_CASES}}
-    for c in counters.values():
-        c.launches = 0
-    want = None
+    for cnt in counters.values():
+        cnt.launches = 0
+
+    def grads(xs, cs, **kw):
+        """y and the gradient of sum(y * c) for x and each of p's leaves."""
+        leaves = {"x": xs.detach().requires_grad_(),
+                  **{k: v.detach().requires_grad_() for k, v in p.items()}}
+        y = moe.moe_apply({k: leaves[k] for k in p}, leaves["x"], cfg, **kw)[0]
+        return y, dict(zip(EP_LEAVES, torch.autograd.grad(
+            (y.float() * cs).sum(), [leaves[k] for k in EP_LEAVES])))
+
+    # the backward's rows: all 4 with a card a rank; 1 where the 4 ranks
+    # share one card (at no drop each rank's expert buffers at T = 512, and
+    # their gradients, would pass the card's 80 GB with the four copies of
+    # the weights and their gradients)
+    bwd_rows = x.shape[0] if backend == "nccl" else 1
+    want = want_g = None
+    keep = E // min(s[1] for s, _ in EP_CASES)          # the experts rank 0 holds in any case
     if rank == 0:
         # without drops a token's output is its own routing's alone, so the
         # single-device path runs a row at a time (its capacity buffer for
-        # all 512 tokens, 128 experts x 4,096 slots, would be 4.3 GB)
-        want = torch.cat([moe.moe_apply(p, x[i:i + 1], cfg, capacity_factor=0.0)[0]
-                          for i in range(x.shape[0])])
+        # all 512 tokens, 128 experts x 4,096 slots, would be 4.3 GB), and
+        # the gradient is the rows' sum (one row's as it is, a sum in fp32;
+        # the weights' kept for the experts rank 0 holds)
+        rows, gx, want_g = [], [], {}
+        for i in range(x.shape[0]):
+            if i >= bwd_rows:
+                with torch.no_grad():
+                    rows.append(moe.moe_apply(p, x[i:i + 1], cfg, capacity_factor=0.0)[0])
+                continue
+            y, g = grads(x[i:i + 1], c[i:i + 1], capacity_factor=0.0)
+            rows.append(y.detach())
+            gx.append(g.pop("x"))
+            for k, v in g.items():
+                v = v[:keep].clone() if k.startswith("w_") else v
+                want_g[k] = v if k not in want_g else want_g[k].float() + v
+            del y, g
+        want, want_g["x"] = torch.cat(rows), torch.cat(gx)
         torch.cuda.empty_cache()
     dist.barrier()
-    coll = [0.0]
     cases = {}
     for shape, mode in EP_CASES:
         mesh = meshes[shape]
-        run = mesh._run
-
-        def timed_run(*a, run=run):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = run(*a)
-            torch.cuda.synchronize()
-            coll[0] += time.perf_counter() - t
-            return out
-
-        mesh._run = timed_run
-        nodrop = moe.moe_apply(p, x, cfg, mesh=mesh, capacity_factor=0.0, cap_slack=1.0,
-                               fsdp_mode=mode)[0]
-        case = {"finite": bool(torch.isfinite(nodrop).all())}
+        log = []
+        run = _timed_collectives(torch, mesh, log)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        # no drop: the output, then the gradient on bwd_rows (the backward timed)
+        nodrop_kw = dict(mesh=mesh, capacity_factor=0.0, cap_slack=1.0, fsdp_mode=mode)
+        with torch.no_grad():
+            nodrop = moe.moe_apply(p, x, cfg, **nodrop_kw)[0]
+        leaves = {"x": x[:bwd_rows].detach().requires_grad_(),
+                  **{k: v.detach().requires_grad_() for k, v in p.items()}}
+        y = moe.moe_apply({k: leaves[k] for k in p}, leaves["x"], cfg, **nodrop_kw)[0]
+        loss = (y.float() * c[:bwd_rows]).sum()
+        del y
+        dist.barrier()
+        torch.cuda.synchronize()
+        del log[:]
+        start.record()
+        got_g = dict(zip(EP_LEAVES, torch.autograd.grad(loss, [leaves[k] for k in EP_LEAVES])))
+        end.record()
+        torch.cuda.synchronize()
+        case = {"finite": bool(torch.isfinite(nodrop).all()), "bwd_rows": bwd_rows,
+                "bwd_ms": start.elapsed_time(end),
+                "bwd_coll_ms": 1e3 * sum(r[-1] for r in log), "bwd_colls": list(log)}
+        # this rank's block of each weight: its experts over `model`, its
+        # slice of d over `data`
+        n_data, n_model = shape
+        e_l, d_l = E // n_model, d // n_data
+        mi, di = mesh.axis_index("model"), mesh.axis_index("data")
+        blocks = {"w_gate": (slice(mi * e_l, (mi + 1) * e_l), slice(di * d_l, (di + 1) * d_l)),
+                  "w_down": (slice(mi * e_l, (mi + 1) * e_l), slice(None),
+                             slice(di * d_l, (di + 1) * d_l))}
+        blocks["w_up"] = blocks["w_gate"]
+        case["grads_agree"] = _checksums_agree(torch, dist, backend,
+                                               [got_g["x"], got_g["router"]])
         if rank == 0:
             case["err"] = float((nodrop.float() - want.float()).abs().max())
             case["scale"] = float(want.float().abs().max())
-        del nodrop
+            case["grad_err"], case["grad_scale"] = {}, {}
+            for k in EP_LEAVES:
+                # rank 0's block starts at the origin
+                g = got_g[k][blocks[k]] if k in blocks else got_g[k]
+                w = want_g[k][blocks[k]] if k in blocks else want_g[k]
+                case["grad_err"][k] = float((g.float() - w.float()).abs().max())
+                case["grad_scale"][k] = float(w.float().abs().max())
+        # zero outside the block: the block cleared in place, then the
+        # extremes (a count of nonzeros would take 8 bytes an element)
+        for k, b in blocks.items():
+            got_g[k][b] = 0
+        case["zero_outside"] = all(float(got_g[k].max()) == 0 == float(got_g[k].min())
+                                   for k in blocks)
+        del nodrop, loss, leaves, got_g
+        torch.cuda.empty_cache()
+        # the defaults: drops, a second call bit-identical, the call timed
         with routing(moe) as rec:
             a = moe.moe_apply(p, x, cfg, mesh=mesh, fsdp_mode=mode)[0]
         call = rec.calls[0]
         case["cap"] = call["cap"]
         case["pairs"] = int(call["counts"].sum())
         case["dropped"] = int((call["counts"] - call["cap"]).clamp(min=0).sum())
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         dist.barrier()
-        coll[0] = 0.0
+        torch.cuda.synchronize()
+        del log[:]
         start.record()
         b = moe.moe_apply(p, x, cfg, mesh=mesh, fsdp_mode=mode)[0]
         end.record()
         torch.cuda.synchronize()
         case.update(same=bool(torch.equal(a, b)), ms=start.elapsed_time(end),
-                    coll_ms=1e3 * coll[0])
+                    coll_ms=1e3 * sum(r[-1] for r in log), colls=list(log))
         case["finite"] = case["finite"] and bool(torch.isfinite(a).all())
-        cases[f"{shape[0]}x{shape[1]} {mode}"] = case
         mesh._run = run
+        if backend == "nccl":
+            case["bus"] = _bus_sweep(torch, dist, mesh, case["colls"] + case["bwd_colls"])
+        cases[f"{shape[0]}x{shape[1]} {mode}"] = case
         del a, b
         torch.cuda.empty_cache()
-    out = {"rank": rank, "cases": cases, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": {k: c.launches for k, c in counters.items()}}
+    out = {"rank": rank, "device": torch.cuda.get_device_name(dev), "cases": cases,
+           "same_weights": same_weights, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: cnt.launches for k, cnt in counters.items()}}
+    if backend == "nccl":
+        del p, x, c, want, want_g
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve"] = mesh_serve(torch, counters, dist, rank, dev)
     (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def mesh_serve(torch, counters, dist, rank: int, dev):
+    """On each NCCL rank: Qwen3-MoE-235B-A22B at full width and
+    MESH_SERVE's depth served through ``RealEngine`` on ``build_model(cfg,
+    mesh=(1, 4) mesh)`` (the reference's ``RealEngine(model, params,
+    rt=Runtime(mesh=...))``): the serve phases' traffic and head, every
+    rank with the whole seeded weights, each MoE layer's experts split over
+    ``model`` and summed by one all-reduce. Rank 0 also holds each MoE
+    layer of one prefill against the single-device expert FFN on the same
+    inputs at the same capacity, and its prefill logits against a mesh-less
+    model's on the same params."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import fit_and_predict
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model, last_token_hidden
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serving.engine import RealEngine
+
+    name, depth, r = MESH_SERVE
+    cfg = get_config(name).with_overrides(n_layers=depth)
+    mesh = make_test_mesh(1, EP_RANKS)
+    model = build_model(cfg, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=dev)
+    leaves = list(_leaves(params))
+    res = {"n_params": sum(int(t.numel()) for t in leaves),
+           "same_params": _checksums_agree(torch, dist, "nccl", leaves)}
+    B, Sp, max_new = 8, 512, 64
+    prompts, plens = served_prompts(cfg.vocab_size)
+    eng = RealEngine(model, params, max_new=max_new)
+    for cnt in counters.values():
+        cnt.launches = 0
+    lens, toks, phi = np.zeros((B, r), np.int64), [], None
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(r):                 # RealEngine.repeated_sampling, its tokens kept
+        gen = torch.Generator(device=dev).manual_seed(j)
+        o = eng.generate(prompts, plens, gen, collect_hidden=(j == 0))
+        lens[:, j], phi = o["lengths"], o["phi"] if j == 0 else phi
+        toks.append(o["tokens"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    pred = fit_and_predict(lens, phi, cfg.predictor_bins, seed=1, qs=(0.5, 0.9), device=dev)
+    torch.cuda.synchronize()
+    res["launches"] = {k: cnt.launches for k, cnt in counters.items()}
+    res["expected"] = expected_launches(layer_kinds(cfg), r, max_new)
+    res.update(gen_s=gen_s, n_tok=int(lens.sum()), lens_max=int(lens.max()),
+               lens_min=int(lens.min()),
+               finite=bool(np.isfinite(phi).all() and np.isfinite(pred["median"]).all()
+                           and np.isfinite(pred["quantiles"]).all()))
+    mine = torch.as_tensor(np.stack(toks), device=dev)
+    every = [torch.empty_like(mine) for _ in range(EP_RANKS)]
+    dist.all_gather(every, mine)
+    steps_differ = [int((e != every[0]).any(dim=(0, 1)).nonzero()[0]) if not torch.equal(
+        e, every[0]) else None for e in every]
+    res["first_step_differing"] = steps_differ
+    # one prefill and one decode step timed, the step profiled and its
+    # collectives counted
+    tokens = torch.as_tensor(prompts, device=dev)
+    lens_t = torch.as_tensor(plens, device=dev)
+    valid = torch.arange(Sp, device=dev)[None, :] < lens_t[:, None]
+    with torch.no_grad():
+        prefill = lambda: model.prefill(params, tokens, attn_valid=valid, logits_mode="none")
+        res["prefill_ms"] = time_ms(prefill, iters=3, warmup=1)
+        cache = model.init_cache(B, Sp + max_new, device=dev)
+        pos = lens_t.to(torch.int32)
+        nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
+        step = lambda: model.decode_step(params, nxt, cache, pos, pos + 1)
+        res["step_ms"] = time_ms(step, iters=10, warmup=2)
+        res["profile"] = device_profile(torch, step, f"mesh serve rank {rank} decode step")
+        log = []
+        run = _timed_collectives(torch, mesh, log)
+        step()
+        mesh._run = run
+        res["step_colls"] = [[k, n] for k, _, n, _, _ in log]
+        res["n_moe"] = sum(k == "moe" for k in layer_kinds(cfg))
+        del cache
+        # rank 0: one prefill's MoE layers captured (inputs, routing, output)
+        calls = []
+        orig = moe._expert_parallel
+
+        def capture(xf, top_ids, combine, p, *a, **kw):
+            out = orig(xf, top_ids, combine, p, *a, **kw)
+            if rank == 0:
+                calls.append((xf, top_ids, combine, p, out))
+            return out
+
+        moe._expert_parallel = capture
+        try:
+            with routing(moe) as rec:
+                _, hidden, _ = prefill()
+        finally:
+            moe._expert_parallel = orig
+        logits = model.unembed(params, last_token_hidden(hidden, lens_t)).float()
+        del hidden
+        if rank == 0:
+            caps = [cl["cap"] for cl in rec.calls]
+            errs = []
+            for (xf, ids, cw, p, out), cap in zip(calls, caps):
+                w = moe._expert_ffn_local(xf, ids, cw, p["w_gate"], p["w_up"], p["w_down"], cap)
+                errs.append([float((out.float() - w.float()).abs().max()),
+                             float(w.float().abs().max())])
+            res["layer_errs"] = errs
+            del calls
+            # the mesh-less model at the capacity the mesh's shard gave the
+            # prefill's T = B x Sp tokens
+            T, k, E = B * Sp, cfg.n_experts_per_token, cfg.n_experts
+            cf = (caps[0] - 1) * E / (T * k)
+            res["cap"], res["cap_single"] = caps[0], moe._capacity(T, k, E, cf)
+            single = build_model(cfg, capacity_factor=cf)
+            _, h1, _ = single.prefill(params, tokens, attn_valid=valid, logits_mode="none")
+            want = single.unembed(params, last_token_hidden(h1, lens_t)).float()
+            res["logits_err"] = float((logits - want).abs().max())
+            res["logits_scale"] = float(want.abs().max())
+            res["logits_rel_l2"] = float(torch.linalg.vector_norm(logits - want)
+                                         / torch.linalg.vector_norm(want))
+            del h1, want
+    dist.barrier()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def mesh_serve_report(res) -> None:
+    """Print and check ``mesh_serve``'s results (one per rank)."""
+    name, depth, r = MESH_SERVE
+    r0 = res[0]
+    # NCCL's kernels run on a stream of their own, beside the step's, and
+    # last until every rank has arrived: their time is counted apart
+    prof = [x["profile"] or {} for x in res]
+    nccl = [sum(ms for k, ms in p["kernels"].items() if "nccl" in k.lower()) if p else None
+            for p in prof]
+    busy = [round((p["busy_ms"] - t) / p["wall_ms"], 3) if p else None
+            for p, t in zip(prof, nccl)]
+    print(f"mesh serve {name} ({depth} layers, {r0['n_params'] / 1e9:.3f}B params on every "
+          f"rank, the same there {[x['same_params'] for x in res]}) on a (1, 4) mesh over "
+          f"NCCL, B=8 Sp=512 r={r} max_new=64: tokens/s per rank "
+          f"{[round(x['n_tok'] / x['gen_s'], 1) for x in res]}; prefill ms "
+          f"{[round(x['prefill_ms'], 2) for x in res]}; decode step ms "
+          f"{[round(x['step_ms'], 2) for x in res]}, device-busy share without NCCL's "
+          f"kernels {busy} (NCCL's kernels ms {[t and round(t, 2) for t in nccl]} under the "
+          f"profiler), launches a step {[p.get('launches') for p in prof]}; peak memory (GB) "
+          f"{[round(x['peak_gb'], 2) for x in res]} (one card, chip run 1, PR 20: "
+          f"{MESH_SERVE_ONE_CARD})")
+    print(f"mesh serve: collectives of one decode step (rank 0) {r0['step_colls']}; sampled "
+          f"tokens against rank 0's, the first step that differs per rank "
+          f"{r0['first_step_differing']}; launches per rank "
+          f"{[x['launches'] for x in res]}, expected with every row at max_new "
+          f"{r0['expected']}")
+    print(f"mesh serve: rank 0's prefill, each MoE layer against the single-device expert "
+          f"FFN on its inputs at capacity {r0['cap']} (max|err| / max|out|) "
+          f"{[round(e / s, 4) for e, s in r0['layer_errs']]} (tolerance 2e-2); logits against "
+          f"a mesh-less model at capacity {r0['cap_single']}: max|err| {r0['logits_err']:.4g} "
+          f"at max|logit| {r0['logits_scale']:.4g}, relative L2 {r0['logits_rel_l2']:.4g} "
+          f"(tolerance 5e-2)")
+    check(all(x["same_params"] for x in res), "mesh serve: the ranks' seeded weights differ")
+    check(all(s is None for s in r0["first_step_differing"]),
+          "mesh serve: the ranks sampled different tokens")
+    check(all(x["finite"] and 1 <= x["lens_min"] <= x["lens_max"] <= 64 for x in res),
+          "mesh serve: lengths or predictions out of range")
+    for x in res:
+        got = x["launches"]
+        for kname in ("flash_attention", "decode_attention", "prod_head"):
+            check(got[kname] > 0, f"mesh serve: {kname} was not launched")
+            if x["lens_min"] == 64:
+                check(got[kname] == x["expected"][kname],
+                      f"mesh serve: {kname} launched {got[kname]} times, expected "
+                      f"{x['expected'][kname]}")
+        check(got["ssd_scan"] == 0, "mesh serve: ssd_scan launched off its path")
+    check(r0["step_colls"] == [["all_reduce", EP_RANKS]] * r0["n_moe"],
+          "mesh serve: a decode step is not one all-reduce over model per MoE layer")
+    check(r0["cap_single"] == r0["cap"], "mesh serve: the mesh-less capacity differs")
+    check(all(e <= 2e-2 * s for e, s in r0["layer_errs"]),
+          "mesh serve: a MoE layer differs from the single-device expert FFN")
+    check(r0["logits_rel_l2"] <= 5e-2, "mesh serve: prefill logits differ from the mesh-less model")
 
 
 # the dryrun phase's combinations (launch/dryrun.py on the 16x16 pod mesh)
@@ -3472,6 +3868,17 @@ def _leaves(tree):
         yield tree
 
 
+def kernel_wrappers():
+    """Each kernel's wrapper, by name; each counts its launches."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.prod_head import prod_head_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    return {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
+            "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
+
+
 def main() -> int:
     import torch
 
@@ -3479,16 +3886,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.prod_head import prod_head_cuda
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-    kernels = {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
-               "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
-    # the ep ranks and the dryrun child run no kernel and build none
+    kernels = kernel_wrappers()
+    # the ep ranks and the dryrun child build no kernel (an NCCL rank's serve
+    # loads what its parent built)
     if sys.argv[1:3] == ["--phase", "ep"]:              # a rank of ep_phase
-        ep_child(torch, kernels, int(sys.argv[3]), int(sys.argv[4]), Path(sys.argv[5]))
+        ep_child(torch, kernels, int(sys.argv[3]), int(sys.argv[4]), Path(sys.argv[5]),
+                 *sys.argv[6:7])
         return 0
     if sys.argv[1:] == ["--phase", "dryrun"]:           # the child of dryrun_child_start
         dryrun_child(torch, kernels)

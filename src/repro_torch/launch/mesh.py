@@ -11,6 +11,16 @@ MoE runs (``models/moe.py``). The collectives are the
 are differentiable with the reference's transposes (an all-gather's
 gradient is a reduce-scatter, an all-reduce's an all-reduce).
 
+:meth:`Mesh.shard_in` and :meth:`Mesh.shard_out` are a region's boundary,
+the in_specs and out_specs of the reference's ``shard_map``. Their
+gradients are that ``shard_map``'s transpose with its replication check
+off (``check_vma=False``, as ``repro/models/moe.py`` runs it): an output's
+cotangent is this rank's block divided by the ranks that hold the same
+block, and an input's cotangent is summed over the axes its spec leaves
+out. With the inner transposes above, every rank's gradient is then its
+share of the global function's, whichever axes the values inside vary
+over.
+
 Hardware constants are the H100's (H100 80GB HBM3, 700 W): the peak bf16
 rate and the HBM rate are ``launch/bench_kernels.py``'s data-sheet figures.
 """
@@ -24,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.common.sharding import PartitionSpec, shard_tensor
 from repro_torch.launch.bench_kernels import BF16_FLOPS as PEAK_FLOPS_BF16   # noqa: F401
 from repro_torch.launch.bench_kernels import HBM_BYTES_PER_S as HBM_BW       # noqa: F401
 
@@ -89,31 +100,38 @@ class Mesh:
 
     # -- the collectives (over the live axes; none at all is the identity) --
 
-    def _run(self, op, t: torch.Tensor, axes) -> torch.Tensor:
-        """``op(t, group size, group name)``, waited on. Gloo is a host
-        transport: a CUDA tensor goes through host memory there, and only
-        there."""
+    def _run(self, kind: str, t: torch.Tensor, axes) -> torch.Tensor:
+        """The collective ``kind`` ("all_gather" along dim 0, "all_reduce" or
+        "reduce_scatter" along dim 0, each a sum) of ``t`` over the group of
+        ``axes``, waited on. Gloo is a host transport: a CUDA tensor goes
+        through host memory there, and only there."""
         group = self.group(axes)
+        n, name = dist.get_world_size(group), group.group_name
         staged = self.backend == "gloo" and t.is_cuda
-        src = t.cpu() if staged else t
-        out = _c10d().wait_tensor(op(src.contiguous(), dist.get_world_size(group),
-                                     group.group_name))
+        src = (t.cpu() if staged else t).contiguous()
+        if kind == "all_gather":
+            out = _c10d().all_gather_into_tensor(src, n, name)
+        elif kind == "all_reduce":
+            out = _c10d().all_reduce(src, "sum", name)
+        else:
+            out = _c10d().reduce_scatter_tensor(src, "sum", n, name)
+        out = _c10d().wait_tensor(out)
         return out.to(t.device) if staged else out
 
+    def _size(self, axes) -> int:
+        return int(np.prod([self.shape[a] for a in axes]))
+
     def _all_gather(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
-        n = int(np.prod([self.shape[a] for a in axes]))
-        out = self._run(_c10d().all_gather_into_tensor, t, axes)      # (n * t.shape[0], ...)
-        return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
+        out = self._run("all_gather", t, axes)                        # (n * t.shape[0], ...)
+        return out if dim == 0 else torch.cat(out.chunk(self._size(axes)), dim=dim)
 
     def _all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
-        return self._run(lambda x, n, name: _c10d().all_reduce(x, "sum", name), t, axes)
+        return self._run("all_reduce", t, axes)
 
     def _reduce_scatter(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
-        n = int(np.prod([self.shape[a] for a in axes]))
         if dim:
-            t = torch.cat(t.chunk(n, dim=dim))
-        return self._run(lambda x, size, name: _c10d().reduce_scatter_tensor(x, "sum", size, name),
-                         t, axes)
+            t = torch.cat(t.chunk(self._size(axes), dim=dim))
+        return self._run("reduce_scatter", t, axes)
 
     def all_gather(self, t: torch.Tensor, dim: int, axes: Sequence[str]) -> torch.Tensor:
         """The blocks of ``t`` of every rank along ``axes``, concatenated on
@@ -125,6 +143,29 @@ class Mesh:
         """The sum of ``t`` over the ranks along ``axes`` (a psum)."""
         axes = self._live(axes)
         return _AllReduce.apply(t, self, axes) if axes else t
+
+    def shard_in(self, t: torch.Tensor, spec: PartitionSpec, whole: bool) -> torch.Tensor:
+        """This rank's block of the global ``t`` by ``spec`` (an in_spec).
+        The gradient is summed over the live axes ``spec`` leaves out; then,
+        if ``whole`` (``t`` is replicated outside the region, as the tokens
+        are), gathered over the axes it names, so every rank holds the whole
+        gradient; else (a sharded weight) put in ``t``'s shape, zero outside
+        this rank's block."""
+        return _ShardIn.apply(t, spec, self, whole)
+
+    def shard_out(self, t: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+        """The global tensor whose block by ``spec`` each rank holds in ``t``
+        (an out_spec), every rank's block the same along the axes ``spec``
+        leaves out."""
+        return _ShardOut.apply(t, spec, self)
+
+    def _spec_axes(self, spec: PartitionSpec):
+        """Per dim of ``spec``, the live axes it is split over; and the live
+        axes it names nowhere."""
+        named = [self._live(e if isinstance(e, tuple) else (e,)) if e is not None else ()
+                 for e in spec]
+        rest = tuple(a for a in self._live(self.axis_names) if not any(a in n for n in named))
+        return named, rest
 
 
 class _AllGather(torch.autograd.Function):
@@ -149,6 +190,48 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh._all_reduce(g, ctx.axes), None, None
+
+
+class _ShardIn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, t, spec, mesh, whole):
+        ctx.spec, ctx.mesh, ctx.whole, ctx.shape = spec, mesh, whole, t.shape
+        return shard_tensor(t, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        named, rest = mesh._spec_axes(ctx.spec)
+        if rest:
+            g = mesh._all_reduce(g, rest)
+        if ctx.whole:
+            for dim, axes in enumerate(named):
+                if axes:
+                    g = mesh._all_gather(g, dim, axes)
+        else:
+            full = g.new_zeros(ctx.shape)
+            shard_tensor(full, ctx.spec, mesh).copy_(g)
+            g = full
+        return g, None, None, None
+
+
+class _ShardOut(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, t, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        named, _ = mesh._spec_axes(spec)
+        for dim, axes in enumerate(named):
+            if axes:
+                t = mesh._all_gather(t, dim, axes)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        _, rest = ctx.mesh._spec_axes(ctx.spec)
+        g = shard_tensor(g, ctx.spec, ctx.mesh)
+        return (g / ctx.mesh._size(rest) if rest else g), None, None
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

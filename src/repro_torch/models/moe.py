@@ -35,6 +35,14 @@ out_specs). The capacity is per shard-local tokens with the global E, times
 ``cap_slack``. Collectives are ``launch/mesh.py::Mesh``'s; the whole branch
 runs under the ``expert_parallel`` scope (``common/scopes.py``), so the
 dry-run's analyzer counts it per rank.
+
+Under a mesh :func:`moe_apply` is a function of the global tensors, as the
+reference's ``shard_map`` is, and so is its gradient: the region's entry
+and exit (``Mesh.shard_in`` / ``shard_out``) transpose as that
+``shard_map`` does, so every rank gets the whole gradient of ``x`` (and,
+through the combine weights, of the router) and, of each expert weight,
+the block it holds by ``wspec_up`` / ``wspec_dn``, zero elsewhere: summed
+over the ranks, the global gradient.
 """
 
 from __future__ import annotations
@@ -238,17 +246,16 @@ def _expert_parallel(xf, top_ids, combine, p, cfg: ModelConfig, mesh, cf: float,
     wspec_dn = P("model", None, fsdp if fsdp else None)
 
     def region(xf, top_ids, combine, w_gate, w_up, w_down):
-        args = [shard_tensor(t, xspec, mesh) for t in (xf, top_ids, combine)]
-        args += [shard_tensor(w_gate, wspec_up, mesh), shard_tensor(w_up, wspec_up, mesh),
-                 shard_tensor(w_down, wspec_dn, mesh)]
+        args = [mesh.shard_in(xf, xspec, whole=True), shard_tensor(top_ids, xspec, mesh),
+                mesh.shard_in(combine, xspec, whole=True),
+                mesh.shard_in(w_gate, wspec_up, whole=False),
+                mesh.shard_in(w_up, wspec_up, whole=False),
+                mesh.shard_in(w_down, wspec_dn, whole=False)]
         if fsdp_mode == "partial":
             out = shard_fn_partial(mesh, fsdp, cap_fn, *args)
         else:
             out = shard_fn(mesh, fsdp, cap_fn(T_loc), *args)
-        for dim, entry in enumerate(xspec):         # out_specs: the global tokens
-            if entry is not None:
-                out = mesh.all_gather(out, dim, entry if isinstance(entry, tuple) else (entry,))
-        return out
+        return mesh.shard_out(out, xspec)           # out_specs: the global tokens
 
     return scoped_kernel_vjp("expert_parallel", region)(
         xf, top_ids, combine, p["w_gate"], p["w_up"], p["w_down"])

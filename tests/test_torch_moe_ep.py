@@ -12,6 +12,16 @@ the defaults (1.25, 2.0). Outputs within 1e-5, aux losses within the 1e-6 of
 tests/test_torch_moe.py (one ulp apart: the token mean sums in another
 order); at no drop each EP output also matches the port's single-device
 path, its aux exactly.
+
+Gradients: of sum(y * c) for a fixed seeded cotangent c, in every case and
+at both capacities, against the reference's jax.grad through its shard_map
+(same subprocesses), and on the (2, 2) meshes also with 15 tokens, which
+do not split over `data` (the tokens replicated). Every rank holds the
+whole gradient of x and of the router, and of each expert weight the block
+it holds (its experts over `model`, its slice of d over `data`), zero
+elsewhere; each within 1e-5 of the leaf's max|grad| (fp32). At no drop x's
+and the router's gradients, and the ranks' weight gradients summed, also
+match the port's single-device path.
 """
 
 import os
@@ -32,6 +42,10 @@ D, F, E, B, S = 64, 32, 16, 8, 16
 TAGS = [f"{m}_{mode}_{cap}" for m, mode in (("2x2", "gather"), ("2x2", "partial"),
                                            ("1x4", "gather"))
         for cap in ("nodrop", "default")]
+# the (2, 2) cases on 3 x 5 tokens: 15 does not split over `data`
+REP_TAGS = [f"2x2_{mode}_{cap}_rep" for mode in ("gather", "partial")
+            for cap in ("nodrop", "default")]
+LEAVES = ("x", "router", "w_gate", "w_up", "w_down")
 
 REFERENCE = textwrap.dedent("""
     import os, sys
@@ -44,17 +58,25 @@ REFERENCE = textwrap.dedent("""
         dtype="float32", d_model=int(data["d"]), moe_d_ff=int(data["f"]),
         n_experts=int(data["E"]))
     p = {k: jnp.asarray(data[k]) for k in ("router", "w_gate", "w_up", "w_down")}
-    x = jnp.asarray(data["x"])
+    x, c = jnp.asarray(data["x"]), jnp.asarray(data["c"])
     out = {}
     for shape, mode in (((2, 2), "gather"), ((2, 2), "partial"), ((1, 4), "gather")):
         mesh = jax.make_mesh(shape, ("data", "model"))
         for cap, (cf, slack) in (("nodrop", (0.0, 1.0)), ("default", (1.25, 2.0))):
-            with mesh:
-                f = jax.jit(lambda p, x: moe_apply(p, x, cfg, mesh=mesh, capacity_factor=cf,
-                                                   cap_slack=slack, fsdp_mode=mode))
-                y, aux = f(p, x)
+            apply = lambda p, x: moe_apply(p, x, cfg, mesh=mesh, capacity_factor=cf,
+                                           cap_slack=slack, fsdp_mode=mode)
+            grad = jax.jit(jax.grad(lambda p, x, c: jnp.sum(apply(p, x)[0] * c), (0, 1)))
             tag = f"{shape[0]}x{shape[1]}_{mode}_{cap}"
-            out["out_" + tag], out["aux_" + tag] = np.asarray(y), np.asarray(aux)
+            for suffix, xs, cs in (("", x, c), ("_rep", x[:3, :5], c[:3, :5])):
+                if suffix and shape != (2, 2):
+                    continue
+                with mesh:
+                    y, aux = jax.jit(apply)(p, xs)
+                    gp, gx = grad(p, xs, cs)
+                out["out_" + tag + suffix], out["aux_" + tag + suffix] = (np.asarray(y),
+                                                                          np.asarray(aux))
+                for k, g in (("x", gx), *gp.items()):
+                    out[f"grad_{tag}{suffix}_{k}"] = np.asarray(g)
     np.savez(sys.argv[2], **out)
 """)
 
@@ -66,6 +88,7 @@ def _inputs(path):
     # most tokens lean toward expert 0, which the default capacity overflows
     x += 12.0 * router[:, 0] / np.linalg.norm(router[:, 0])
     np.savez(path, d=D, f=F, E=E, router=router, x=x.astype(np.float32),
+             c=rng.standard_normal((B, S, D)).astype(np.float32),
              w_gate=(rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32),
              w_up=(rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32),
              w_down=(rng.standard_normal((E, F, D)) / np.sqrt(F)).astype(np.float32))
@@ -119,3 +142,63 @@ def test_default_capacity_drops_pairs(outputs, mesh_mode):
     _, port = outputs
     gap = np.abs(port[f"out_{mesh_mode}_default"] - port[f"out_{mesh_mode}_nodrop"]).max()
     assert gap > 1e-3, gap
+
+
+def _mesh_shape(tag):
+    return tuple(int(n) for n in tag.split("_")[0].split("x"))
+
+
+def _block(tag, leaf, rank):
+    """The index of rank ``rank``'s block of an expert weight: its experts
+    over `model`, its slice of d over `data` (rank = data * n_model + model)."""
+    n_data, n_model = _mesh_shape(tag)
+    di, mi = divmod(rank, n_model)
+    e = slice(mi * E // n_model, (mi + 1) * E // n_model)
+    d = slice(di * D // n_data, (di + 1) * D // n_data)
+    return (e, d) if leaf in ("w_gate", "w_up") else (e, slice(None), d)
+
+
+@pytest.mark.parametrize("tag", REP_TAGS)
+def test_ep_with_replicated_tokens_matches_reference(outputs, tag):
+    ref, port = outputs
+    np.testing.assert_allclose(port["out_" + tag], ref["out_" + tag], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(port["aux_" + tag], ref["aux_" + tag], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+@pytest.mark.parametrize("tag", TAGS + REP_TAGS)
+def test_ep_grad_matches_reference(outputs, tag, leaf):
+    """Every rank's gradient against jax.grad of the reference's shard_map:
+    x and the router whole, an expert weight on the rank's block and exactly
+    zero outside it."""
+    ref, port = outputs
+    want = ref[f"grad_{tag}_{leaf}"]
+    atol = 1e-5 * np.abs(want).max()
+    for r in range(4):
+        got = port[f"grad_{tag}_{leaf}_r{r}"]
+        assert got.shape == want.shape
+        if leaf in ("x", "router"):
+            np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=f"rank {r}")
+            continue
+        blk = _block(tag, leaf, r)
+        np.testing.assert_allclose(got[blk], want[blk], rtol=0, atol=atol, err_msg=f"rank {r}")
+        rest = got.copy()
+        rest[blk] = 0
+        assert not rest.any(), f"rank {r}: nonzero gradient outside its block"
+
+
+@pytest.mark.parametrize("tag", [t for t in TAGS + REP_TAGS if "nodrop" in t])
+def test_ep_grads_without_drops_match_single_device(outputs, tag):
+    """At no drop the global gradient is the single-device path's: x and the
+    router on every rank, the weights as the sum of the ranks' blocks."""
+    _, port = outputs
+    single = "single_rep" if tag.endswith("_rep") else "single"
+    for leaf in LEAVES:
+        want = port[f"grad_{single}_{leaf}"]
+        atol = 1e-5 * np.abs(want).max()
+        got = [port[f"grad_{tag}_{leaf}_r{r}"] for r in range(4)]
+        if leaf in ("x", "router"):
+            for r, g in enumerate(got):
+                np.testing.assert_allclose(g, want, rtol=0, atol=atol, err_msg=f"{leaf} rank {r}")
+        else:
+            np.testing.assert_allclose(sum(got), want, rtol=0, atol=atol, err_msg=leaf)
