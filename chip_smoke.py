@@ -3181,7 +3181,9 @@ PORT_KERNELS = ("flash_fwd_", "decode_fwd", "ssd_scan_", "prod_head_")
 
 def device_profile(torch, fn, label: str, top: int = 6) -> None:
     """Device busy share of one call of ``fn`` and the kernels that take
-    most of its device time (torch.profiler, CUDA kernel events only). The
+    most of its device time (torch.profiler, CUDA kernel events only: the
+    device ranges of the program's spans, ``common/scopes.py``, are user
+    annotations and are left out, or each kernel would count twice). The
     profiler adds host time, so the wall time here is above the event timing.
     Returns the wall and busy ms, the launches and each kernel's ms (None
     without device events)."""
@@ -3198,8 +3200,8 @@ def device_profile(torch, fn, label: str, top: int = 6) -> None:
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and e.device_time_total > 0 and not e.is_user_annotation]
     kernels = {e.key: e.device_time_total / 1e3 for e in events}
     n_launch = sum(e.count for e in events)
     busy = sum(kernels.values())
@@ -3683,7 +3685,7 @@ def mesh_serve(torch, counters, dist, rank: int, dev):
             caps = [cl["cap"] for cl in rec.calls]
             errs = []
             for (xf, ids, cw, p, out), cap in zip(calls, caps):
-                w = moe._expert_ffn_local(xf, ids, cw, p["w_gate"], p["w_up"], p["w_down"], cap)
+                w, _ = moe._expert_ffn_local(xf, ids, cw, p["w_gate"], p["w_up"], p["w_down"], cap)
                 errs.append([float((out.float() - w.float()).abs().max()),
                              float(w.float().abs().max())])
             res["layer_errs"] = errs

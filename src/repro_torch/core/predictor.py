@@ -16,6 +16,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.common import scopes
 from repro_torch.common.config import PredictorConfig, TrainConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.core import bins as bins_mod
@@ -61,8 +62,10 @@ class LengthPredictor:
     @torch.no_grad()
     def quantiles(self, phi, qs: Sequence[float]):
         """Fused histogram + interpolated quantiles in ONE head evaluation:
-        ``(probs (B, K), quants (B, len(qs)))`` through the fused kernel."""
-        return head_quantiles(self.params, self._features(phi), self.edges, qs)
+        ``(probs (B, K), quants (B, len(qs)))`` through the fused kernel
+        (the span ``head.quantiles`` under the profiler)."""
+        with scopes.span("head.quantiles"):
+            return head_quantiles(self.params, self._features(phi), self.edges, qs)
 
 
 def train_predictor(

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.common.scopes import is_tracing, kernel_region
+from repro_torch.common.scopes import is_tracing, kernel_region, span
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -75,7 +75,8 @@ def prod_head(phi, w1, b1, w2, b2, edges, *, qs=None):
     CDF levels returns (probs, quants (B, Q)) — all levels in one call."""
     if not _on_cuda(phi):
         return ref.prod_head_ref(phi, w1, b1, w2, b2, edges, qs=qs)
-    levels = torch.as_tensor([0.5] if qs is None else qs, dtype=torch.float32,
-                             device=phi.device)
+    with span("head.levels"):
+        levels = torch.as_tensor([0.5] if qs is None else qs, dtype=torch.float32,
+                                 device=phi.device)
     probs, quants = prod_head_cuda(phi, w1, b1, w2, b2, edges, levels)
     return (probs, quants[:, 0]) if qs is None else (probs, quants)

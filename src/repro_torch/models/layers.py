@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import scopes
+
 
 @dataclass(frozen=True)
 class ParamSpec:
@@ -122,6 +124,8 @@ def embed_spec(vocab: int, d_model: int) -> ParamSpec:
 
 def unembed(x: torch.Tensor, w_embed: torch.Tensor,
             w_head: Optional[torch.Tensor]) -> torch.Tensor:
-    """Project hidden states to vocab logits in fp32 (for sampling stability)."""
+    """Project hidden states to vocab logits in fp32 (for sampling stability);
+    the span ``model.unembed`` under the profiler."""
     w = w_embed.T if w_head is None else w_head
-    return x.to(torch.float32) @ w.to(torch.float32)
+    with scopes.span("model.unembed"):
+        return x.to(torch.float32) @ w.to(torch.float32)

@@ -35,6 +35,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.common import scopes
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.common.pytree import fake_tensor, tree_bytes, tree_map
@@ -117,22 +118,24 @@ class Model:
         {"k", "v", "ck", "cv"}). An encoder-decoder encodes ``enc_embeds``
         (B, encoder_seq, d) and decodes ``tokens``; a VLM may take
         ``embeds`` and ``positions`` in place of tokens."""
-        if self.is_encdec:
-            enc_out = encdec.encode(params, self.cfg, enc_embeds)
-            return encdec.decoder_forward(params, self.cfg, tokens, enc_out,
-                                          attn_valid=attn_valid, logits_mode=logits_mode)
-        return transformer.forward(params, self.cfg, tokens, attn_valid=attn_valid,
-                                   logits_mode=logits_mode, moe=self.moe,
-                                   embeds=embeds, positions=positions)
+        with scopes.span("model.prefill"):
+            if self.is_encdec:
+                enc_out = encdec.encode(params, self.cfg, enc_embeds)
+                return encdec.decoder_forward(params, self.cfg, tokens, enc_out,
+                                              attn_valid=attn_valid, logits_mode=logits_mode)
+            return transformer.forward(params, self.cfg, tokens, attn_valid=attn_valid,
+                                       logits_mode=logits_mode, moe=self.moe,
+                                       embeds=embeds, positions=positions)
 
     def decode_step(self, params, tokens, cache, pos, lengths, embeds=None):
         """tokens, pos (B,), lengths (B,) int32 (or a VLM's ``embeds`` (B, d)
         for the tokens). Returns (logits, hidden), writes the new K/V into
         ``cache`` and replaces its SSM states."""
-        if self.is_encdec:
-            return encdec.decoder_decode_step(params, self.cfg, tokens, cache, pos, lengths)
-        return transformer.decode_step(params, self.cfg, tokens, cache, pos, lengths,
-                                       moe=self.moe, embeds=embeds)
+        with scopes.span("model.decode_step"):
+            if self.is_encdec:
+                return encdec.decoder_decode_step(params, self.cfg, tokens, cache, pos, lengths)
+            return transformer.decode_step(params, self.cfg, tokens, cache, pos, lengths,
+                                           moe=self.moe, embeds=embeds)
 
     def unembed(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden, params["embed"], params.get("head"))

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import scopes
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.scopes import scoped_kernel_vjp
 from repro_torch.common.sharding import P, shard_index, shard_tensor
@@ -173,14 +174,20 @@ def _expert_ffn_local(
     w_up: torch.Tensor,
     w_down: torch.Tensor,       # (E_local, f, d)
     capacity: int,
-) -> torch.Tensor:
-    """Capacity-dispatch expert computation. Returns (T, d)."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-dispatch expert computation. Returns (T, d) and ``_dispatch``'s
+    ``slot`` (T, k); the dispatch, the expert products and the combine are
+    the spans ``moe.dispatch``, ``moe.experts`` and ``moe.combine``."""
     E_local = w_gate.shape[0]
-    gather_tok, valid, weight, slot = _dispatch(local_ids, combine_w, E_local, capacity)
-    xe = x[gather_tok.reshape(-1)].view(E_local, capacity, x.shape[1])
-    xe = torch.where(valid[..., None], xe, torch.zeros((), dtype=x.dtype, device=x.device))
-    ye = _expert_mats(xe, w_gate, w_up, w_down)
-    return _combine(ye, weight, slot)
+    with scopes.span("moe.dispatch"):
+        gather_tok, valid, weight, slot = _dispatch(local_ids, combine_w, E_local, capacity)
+    with scopes.span("moe.experts"):
+        xe = x[gather_tok.reshape(-1)].view(E_local, capacity, x.shape[1])
+        xe = torch.where(valid[..., None], xe, torch.zeros((), dtype=x.dtype, device=x.device))
+        ye = _expert_mats(xe, w_gate, w_up, w_down)
+        del xe                  # freed before the combine
+    with scopes.span("moe.combine"):
+        return _combine(ye, weight, slot), slot
 
 
 def _local_ids(ids: torch.Tensor, mesh, E_local: int) -> torch.Tensor:
@@ -196,8 +203,8 @@ def shard_fn(mesh, fsdp, cap, xf_l, ids_l, cw_l, wg_l, wu_l, wd_l):
     wg_l = mesh.all_gather(wg_l, 1, fsdp)
     wu_l = mesh.all_gather(wu_l, 1, fsdp)
     wd_l = mesh.all_gather(wd_l, 2, fsdp)
-    out_l = _expert_ffn_local(xf_l, _local_ids(ids_l, mesh, wg_l.shape[0]), cw_l,
-                              wg_l, wu_l, wd_l, cap)
+    out_l, _ = _expert_ffn_local(xf_l, _local_ids(ids_l, mesh, wg_l.shape[0]), cw_l,
+                                 wg_l, wu_l, wd_l, cap)
     return mesh.all_reduce(out_l, ("model",))
 
 
@@ -273,8 +280,9 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, mes
     T = B * S
     k, E = cfg.n_experts_per_token, cfg.n_experts
     xf = x.reshape(T, d)
-    logits32 = xf.to(torch.float32) @ p["router"].to(torch.float32)
-    top_ids, combine, aux = _router(logits32, k)
+    with scopes.span("moe.router"):
+        logits32 = xf.to(torch.float32) @ p["router"].to(torch.float32)
+        top_ids, combine, aux = _router(logits32, k)
     cf = capacity_factor if capacity_factor else float(E)
     ep = (mesh is not None and "model" in mesh.axis_names and mesh.shape["model"] > 1
           and E % mesh.shape["model"] == 0)
@@ -282,8 +290,13 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, mes
         out = _expert_parallel(xf, top_ids, combine, p, cfg, mesh, cf, cap_slack,
                                fsdp_mode).reshape(B, S, d)
     else:
-        out = _expert_ffn_local(xf, top_ids, combine, p["w_gate"], p["w_up"], p["w_down"],
-                                _capacity(T, k, E, cf)).reshape(B, S, d)
+        cap = _capacity(T, k, E, cf)
+        out, slot = _expert_ffn_local(xf, top_ids, combine, p["w_gate"], p["w_up"],
+                                      p["w_down"], cap)
+        out = out.reshape(B, S, d)
+        # the pairs routed, and (counted when read) those past capacity
+        scopes.count("moe.pairs", T * k)
+        scopes.count_equal("moe.dropped", slot, E * cap)
     if cfg.n_shared_experts and "shared" in p:
         out = out + mlp_apply(p["shared"], x, "silu")
     return out, aux.to(torch.float32)

@@ -52,6 +52,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.common import scopes
 from repro_torch.models.model_zoo import last_token_hidden
 from repro_torch.serving.kvcache import KVCacheManager
 from repro_torch.serving.request import Request
@@ -1351,8 +1352,9 @@ class RealEngine:
     def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         """Categorical draw from softmax(logits / T): argmax of the scaled
         logits plus Gumbel noise (-log of an Exp(1) draw)."""
-        e = torch.empty_like(logits).exponential_(generator=gen)
-        return torch.argmax(logits / self.temp - torch.log(e), dim=-1)
+        with scopes.span("engine.sample"):
+            e = torch.empty_like(logits).exponential_(generator=gen)
+            return torch.argmax(logits / self.temp - torch.log(e), dim=-1)
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, prompt_lens: np.ndarray,
@@ -1363,7 +1365,8 @@ class RealEngine:
         ``collect_per_step`` (else None), step_hidden (B, max_new, d) fp32,
         the hidden state of each decode step's input token, and step_valid
         (B, max_new), the rows not finished after that step (paper §2.2's
-        t > 0 case)."""
+        t > 0 case). Under the profiler each decode-loop iteration is the
+        span ``engine.step``."""
         dev = self.device
         B, Sp = prompts.shape
         tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
@@ -1393,19 +1396,22 @@ class RealEngine:
                                       dtype=torch.float32, device=dev)
             step_valid = torch.zeros((B, self.max_new), dtype=torch.bool, device=dev)
         for step in range(self.max_new):
-            nxt = torch.where(finished, eos, self._sample(cur_logits, gen))
-            out_tokens[:, step] = nxt.to(torch.int32)
-            newly = ~finished & (nxt == self.eos)
-            finished = finished | (nxt == self.eos)
-            gen_len = torch.where(newly, step + 1, gen_len)
-            if bool(finished.all()):
-                break
-            cur_logits, hid = self.model.decode_step(self.params, nxt, cache,
-                                                     pos=lengths, lengths=lengths + 1)
-            if collect_per_step:
-                step_hidden[:, step] = hid
-                step_valid[:, step] = ~finished
-            lengths = lengths + (~finished).to(torch.int32)
+            with scopes.span("engine.step"):
+                nxt = torch.where(finished, eos, self._sample(cur_logits, gen))
+                out_tokens[:, step] = nxt.to(torch.int32)
+                newly = ~finished & (nxt == self.eos)
+                finished = finished | (nxt == self.eos)
+                gen_len = torch.where(newly, step + 1, gen_len)
+                with scopes.span("engine.finished_sync"):
+                    done = bool(finished.all())
+                if done:
+                    break
+                cur_logits, hid = self.model.decode_step(self.params, nxt, cache,
+                                                         pos=lengths, lengths=lengths + 1)
+                if collect_per_step:
+                    step_hidden[:, step] = hid
+                    step_valid[:, step] = ~finished
+                lengths = lengths + (~finished).to(torch.int32)
         gen_len = torch.where(gen_len == 0, self.max_new, gen_len)
         host = lambda t: None if t is None else t.cpu().numpy()
         return {"lengths": host(gen_len), "phi": phi, "tokens": host(out_tokens),
