@@ -45,7 +45,12 @@ script exits non-zero without its result line:
    self-attention (S=224) and its cross-attention (non-causal, Sq=224 against
    1,500 keys), Qwen2-VL's prefill (12 heads on 2, hd=128, G=6); decode on
    Whisper's self cache, its static 1,500-slot cross cache (every key valid)
-   and at Qwen2-VL's G=6 (with the split sweep);
+   and at Qwen2-VL's G=6 (with the split sweep); then the unembed kernel
+   (``unembed_kernel_checks``) at every served bf16 model's d and vocabulary,
+   untied or tied as the model is, at B=8 and 4 and at the collect cells'
+   512 rows, against the fp32 product within 1e-5 of the logits' scale, a
+   second call bit-identical, its error against fp64 printed beside the fp32
+   product's, timed beside cuBLAS's bf16 GEMM with an fp32 output;
    run: the benchmark runner (``launch/run.py --only kernels,theory``) in
    this process, its CSV rows printed: the reference kernel bench's four
    rows (``launch/bench_kernels.py``: flash B=2, S=512, H=8 on 2, hd=64;
@@ -102,6 +107,8 @@ script exits non-zero without its result line:
    - Qwen2-VL-2B (28 layers, d=1536, 12 heads on 2, M-RoPE, a tied
      151,936-token vocabulary) on text tokens, where its three M-RoPE
      streams are equal, r=2: flash, decode and head.
+   Every model also runs the unembed kernel, once for each generation's
+   first token and once a decode step.
    The launch counts are set to 0 before each model's run and read after it;
    each kernel the model's path runs must have risen, and equal
    ``expected_launches`` when no row met EOS. The head kernel is then
@@ -953,6 +960,78 @@ def encdec_vlm_kernel_checks(torch, ref, kernels):
                         what="whisper and qwen2-vl kernels")
 
 
+# the unembed's shapes on the main path: (label, d, V, tied, rows). Every
+# served bf16 model at B=8 (a serve phase's batch, the admit cells' batch);
+# B=4, the long phases'; the collect cells' 512 rows (64 prompts x r=8).
+# Whisper's decoder unembeds by its embedding table (tied).
+UNEMBED_SHAPES = (
+    ("llama3-8b", 4096, 128256, False, (8,)), ("qwen2.5-7b", 3584, 152064, False, (8, 512)),
+    ("granite-20b", 6144, 49152, False, (8,)), ("minicpm-2b", 2304, 122753, True, (8,)),
+    ("yi-34b", 7168, 64000, False, (8,)), ("gemma3-27b", 5376, 262144, True, (4, 8)),
+    ("qwen3-moe-235b-a22b", 4096, 151936, False, (8, 512)),
+    ("kimi-k2-1t-a32b", 7168, 163840, False, (8,)), ("qwen2-vl-2b", 1536, 151936, True, (8,)),
+    ("zamba2-1.2b", 2048, 32000, False, (4, 8)), ("mamba2-130m", 768, 50280, True, (8,)),
+    ("whisper-large-v3", 1280, 51866, True, (8,)))
+
+
+def unembed_kernel_checks(torch, ref, kernels):
+    """Phase 3, the unembed kernel at the main path's shapes
+    (``UNEMBED_SHAPES``), bf16 x (unit normal) and head (an untied head at
+    its init scale d^-0.5, a tied table at 0.02, seen as ``embed.T``): held
+    against its plain version, the fp32 product ``ref.unembed_ref``, within
+    1e-5 of the logits' largest magnitude (the two sum the same exact
+    products in another order and rounding, about 1e-6 of it apart; a
+    64-term stage lost or a column misplaced moves the logits by a tenth of
+    it), and a second call bit-identical. Both are also printed against an
+    fp64 product of the same bf16 values (the ``gpu`` tests of
+    ``tests/test_torch_unembed.py`` hold the kernel's error within twice
+    the fp32 product's). Timed beside the plain version and cuBLAS's bf16
+    GEMM with an fp32 output (the library yardstick, never used by the
+    port); bound: the bf16 head and x read once, the fp32 logits written
+    once, and the products at the bf16 peak."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = []
+    for label, d, vocab, tied, ms in UNEMBED_SHAPES:
+        if tied:
+            w = (torch.randn(vocab, d, generator=g, device=dev) * 0.02).to(torch.bfloat16).T
+        else:
+            w = (torch.randn(d, vocab, generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+        for m in ms:
+            x = torch.randn(m, d, generator=g, device=dev).to(torch.bfloat16)
+            got = kernels["unembed"](x, w)
+            again = kernels["unembed"](x, w)
+            want = ref.unembed_ref(x, w)
+            exact = x.double() @ w.double()
+            torch.cuda.synchronize()
+            shape = f"M={m} d={d} V={vocab} {'tied' if tied else 'untied'} ({label})"
+            err = max_err(torch, got, want)
+            scale = want.abs().max().item()
+            err64, plain64 = (float((t.double() - exact).abs().max()) for t in (got, want))
+            del exact
+            print(f"unembed {shape}: max|kernel - fp32 product| {err:.3g} at max|logit| "
+                  f"{scale:.3g}; against fp64: kernel {err64:.3g}, fp32 product {plain64:.3g} "
+                  f"({err64 / plain64:.2f}x)")
+            check(err <= 1e-5 * scale, f"unembed {shape}: max err {err} at scale {scale}")
+            check(torch.equal(got, again), f"unembed {shape}: two calls differ")
+            call = lambda: kernels["unembed"](x, w)
+            lib = lambda: torch.mm(x, w, out_dtype=torch.float32)
+            ms_, dev_ms = time_ms(call), device_time_ms(call)
+            plain_ms = time_ms(lambda: ref.unembed_ref(x, w))
+            lib_ms, lib_dev_ms = time_ms(lib), device_time_ms(lib)
+            nbytes, flops = 2 * (m * d + d * vocab) + 4 * m * vocab, 2 * m * d * vocab
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            rows.append({"name": "unembed", "shape": shape, "max_abs_err": err, "ms": ms_,
+                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
+                         "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+        del w
+    torch.cuda.empty_cache()
+    report_rows(rows)
+    print(f"unembed: {len(rows)} kernel rows held")
+    return rows
+
+
 def run_phase(torch, counters):
     """Phase 3b: the benchmark runner (``launch/run.py``) in this process on
     its ``kernels`` and ``theory`` entries, its CSV rows printed. The
@@ -978,8 +1057,12 @@ def run_phase(torch, counters):
     check(len(theory) == 4 and all(str(v) == "True" for v in theory.values()),
           f"run: theory booleans {theory}, the reference's are all True")
     rows = bench_kernels.measure()
-    check(sorted(r["name"] for r in rows) == sorted(counters),
+    # the reference's kernel bench times the four TPU kernels; the unembed,
+    # which replaces none, is not among them and must not launch here
+    ported = sorted(k for k in counters if k != "unembed")
+    check(sorted(r["name"] for r in rows) == ported,
           f"run: measure gave the kernels {[r['name'] for r in rows]}")
+    check(launches["unembed"] == 0, "run: unembed launched off its path")
     for r in rows:
         check(r["row"] in values, f"run: no {r['row']} row")
         check(launches[r["name"]] == 23,
@@ -990,12 +1073,12 @@ def run_phase(torch, counters):
 # each served model: generations per prompt, the kernels its path runs,
 # whether one prefill and one decode step are profiled, and the depth it is
 # cut to (None: its full depth)
-DENSE = ("flash_attention", "decode_attention", "prod_head")
+DENSE = ("flash_attention", "decode_attention", "prod_head", "unembed")
 SERVE_PHASES = (
     ("llama3-8b", 4, DENSE, True, None),
-    ("zamba2-1.2b", 4, ("ssd_scan", "flash_attention", "decode_attention", "prod_head"), True,
-     None),
-    ("mamba2-130m", 2, ("ssd_scan", "prod_head"), True, None),
+    ("zamba2-1.2b", 4, ("ssd_scan", "flash_attention", "decode_attention", "prod_head",
+                        "unembed"), True, None),
+    ("mamba2-130m", 2, ("ssd_scan", "prod_head", "unembed"), True, None),
     ("qwen2.5-7b", 4, DENSE, True, None),
     ("granite-20b", 2, DENSE, False, None),
     ("minicpm-2b", 2, DENSE, False, None),
@@ -1016,10 +1099,12 @@ def expected_launches(kinds, r: int, max_new: int):
     max_new (with random weights EOS is rare): one scan per SSM layer and
     one flash call per attention layer (a ``moe`` layer is one: attention,
     then the experts) in each prefill, one decode call per attention layer
-    in each of the max_new steps, and two head calls."""
+    in each of the max_new steps, two head calls, and one unembed (bf16) for
+    each generation's first token and one in each of its max_new steps."""
     n_attn = sum(k != "ssm" for k in kinds)
     return {"ssd_scan": r * sum(k == "ssm" for k in kinds), "flash_attention": r * n_attn,
-            "decode_attention": r * max_new * n_attn, "prod_head": 2}
+            "decode_attention": r * max_new * n_attn, "prod_head": 2,
+            "unembed": r * (max_new + 1)}
 
 
 def model_bounds(cfg, kinds, n_params: int, B: int, Sp: int, cache_len: int,
@@ -2125,7 +2210,8 @@ def int8_kv_phase(torch, counters):
     check(ratio < 0.65, f"int8 kv: the int8 cache is {ratio:.4f}x the plain one")
     check(launches["decode_attention"] == 2 * T * cfg.n_layers,
           f"int8 kv: decode_attention launched {launches['decode_attention']} times")
-    check(all(v == 0 for k, v in launches.items() if k != "decode_attention"),
+    check(launches["unembed"] == 2 * T, f"int8 kv: unembed launched {launches['unembed']} times")
+    check(all(v == 0 for k, v in launches.items() if k not in ("decode_attention", "unembed")),
           "int8 kv: a kernel launched off the decode path")
 
     with torch.no_grad():
@@ -2385,6 +2471,7 @@ def online_phase(torch, ref, counters):
           launches_b["decode_attention"] == n_layers * steps,
           f"online (b): flash / decode launches {launches_b}")
     check(launches_b["prod_head"] == 2, "online (b): prod_head launches")
+    check(launches_b["unembed"] == steps + 1, f"online (b): unembed launches {launches_b}")
     mae = float((pred.cpu() - torch.as_tensor(rem)).abs().mean())
     q = quants.cpu().numpy()
     print(f"online (b): train MAE of the online head {mae:.3f} tokens (remaining 0-"
@@ -2560,6 +2647,7 @@ def long_phase(torch, ref, counters):
           f"long: decode launches {launches}")
     if lens.min() == max_new:
         check(launches["decode_attention"] == max_new * n_attn, f"long: decode launches {launches}")
+        check(launches["unembed"] == max_new + 1, f"long: unembed launches {launches}")
     n_tok = int(lens.sum())
     print(f"long: Zamba2-1.2B B={B} prompts {list(LONG_LENS)} padded to {Sp}, window {W}, "
           f"max_new={max_new}: {gen_s:.2f} s, {n_tok} generated tokens, "
@@ -2782,6 +2870,7 @@ def gemma3_long_phase(torch, ref, counters):
     if lens.min() == max_new:
         check(launches["decode_attention"] == max_new * len(kinds),
               f"gemma3 long: decode launches {launches}")
+        check(launches["unembed"] == max_new + 1, f"gemma3 long: unembed launches {launches}")
     n_tok = int(lens.sum())
     print(f"gemma3 long: B={B} prompts {list(G3_LONG_LENS)} padded to {Sp}, window {W} on "
           f"{kinds.count('local')} of {len(kinds)} layers, max_new={max_new}: {gen_s:.2f} s, "
@@ -2992,7 +3081,8 @@ def whisper_phase(torch, ref, counters):
     check(np.isfinite(med).all() and np.isfinite(quants).all(), f"{name}: predictions finite")
     check((quants[:, 1] >= quants[:, 0] - 1e-4).all(), f"{name}: q0.9 >= q0.5")
     expect = {"flash_attention": r * (cfg.n_encoder_layers + 2 * L),
-              "decode_attention": 2 * L * steps, "prod_head": 2, "ssd_scan": 0}
+              "decode_attention": 2 * L * steps, "prod_head": 2, "ssd_scan": 0,
+              "unembed": r + steps}
     print(f"serve {name}: launches on the main path {json.dumps(launches)}; expected "
           f"{json.dumps(expect)} ({steps} decode steps over r={r})")
     check(launches == expect, f"{name}: launches {launches}, expected {expect}")
@@ -3111,7 +3201,7 @@ def vlm_embeds_phase(torch, ref, counters):
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     expect = {"flash_attention": len(kinds), "decode_attention": steps * len(kinds),
-              "prod_head": 0, "ssd_scan": 0}
+              "prod_head": 0, "ssd_scan": 0, "unembed": steps + 1}
     print(f"{name} embeds: B={B} S={S} ({VLM_PATCHES} patches on a 16 x 16 grid, then "
           f"text), {steps} decode steps: {wall:.2f} s, {B * steps / wall:.1f} tokens/s "
           f"(prefill included); launches {json.dumps(launches)}, expected {json.dumps(expect)}")
@@ -3747,7 +3837,7 @@ def mesh_serve_report(res) -> None:
           "mesh serve: lengths or predictions out of range")
     for x in res:
         got = x["launches"]
-        for kname in ("flash_attention", "decode_attention", "prod_head"):
+        for kname in ("flash_attention", "decode_attention", "prod_head", "unembed"):
             check(got[kname] > 0, f"mesh serve: {kname} was not launched")
             if x["lens_min"] == 64:
                 check(got[kname] == x["expected"][kname],
@@ -3876,9 +3966,11 @@ def kernel_wrappers():
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.prod_head import prod_head_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.kernels.unembed import unembed_cuda
 
     return {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
-            "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda}
+            "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda,
+            "unembed": unembed_cuda}
 
 
 def main() -> int:
@@ -3931,6 +4023,7 @@ def main() -> int:
     rows += gemma3_kernel_checks(torch, ref, kernels)
     rows += moe_kernel_checks(torch, ref, kernels)
     rows += encdec_vlm_kernel_checks(torch, ref, kernels)
+    rows += unembed_kernel_checks(torch, ref, kernels)
     mark("kernels")
     by_phase = {}
     by_phase["run"], run_rows = run_phase(torch, kernels)
@@ -4006,7 +4099,10 @@ def main() -> int:
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:64"),
                "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan.py:61")}
+                            "src/repro/kernels/ssd_scan.py:61"),
+               # no TPU kernel: the reference's unembed is a plain fp32 product
+               "unembed": ("src/repro_torch/kernels/csrc/unembed.cu",
+                           "src/repro/models/layers.py:135-138")}
     report = []
     for r in rows:
         if any(k["name"] == r["name"] for k in report):

@@ -13,8 +13,8 @@ the root of the checkout, which ``.gitignore`` lists. ``nvcc``'s ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside each library as
 ``<library>.log``. The Hopper pieces (TMA, mbarriers, ``wgmma``,
 ``setmaxnreg``) are inline PTX in ``csrc/sm90.cuh``, so no CUTLASS or CuTe
-header and no extra include path is needed; the four libraries build in
-about 7 s, in parallel, on the H100 machine (``chip_smoke.py``'s build line).
+header and no extra include path is needed; the libraries build at once, in
+parallel (``chip_smoke.py``'s build line gives the time on the H100 machine).
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises when that is not 0, so a refused launch is never
@@ -39,7 +39,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("prod_head", "flash_attention", "decode_attention", "ssd_scan")
+KERNEL_SOURCES = ("prod_head", "flash_attention", "decode_attention", "ssd_scan", "unembed")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -5,7 +5,9 @@ not take); a CPU tensor goes to the plain PyTorch version in ``ref``. There is
 no fall-back from one to the other. Signatures follow ``repro/kernels/ops.py``
 without its ``impl`` and block-size knobs: the device picks the path, and the
 tile sizes are the kernels' own. ``flash_attention`` adds ``kv_lengths``, the
-valid key prefix of each row.
+valid key prefix of each row. ``unembed`` replaces no TPU kernel (the
+reference's unembed is a plain fp32 product): a head stored in fp32 takes
+that product on either device, and a bf16 head on the card the kernel.
 
 Each entry point runs under ``fusedkernel_<name>`` (``common/scopes.py``),
 the mark by which the dry-run's analyzer (``launch/graph_analysis.py``)
@@ -27,6 +29,7 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.prod_head import prod_head_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.unembed import unembed_cuda
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -80,3 +83,15 @@ def prod_head(phi, w1, b1, w2, b2, edges, *, qs=None):
                                  device=phi.device)
     probs, quants = prod_head_cuda(phi, w1, b1, w2, b2, edges, levels)
     return (probs, quants[:, 0]) if qs is None else (probs, quants)
+
+
+@kernel_region("fusedkernel_unembed")
+def unembed(x, w):
+    """fp32 logits x (..., K) @ w (K, N). On the CPU, and for a head stored in
+    fp32, the fp32 product ``ref.unembed_ref``. A bf16 head on the card goes
+    to the kernel, x as contiguous rows; the kernel raises on what it does
+    not take (x not bf16, a layout TMA cannot read)."""
+    if not _on_cuda(x) or w.dtype == torch.float32:
+        return ref.unembed_ref(x, w)
+    logits = unembed_cuda(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    return logits.reshape(*x.shape[:-1], w.shape[-1])

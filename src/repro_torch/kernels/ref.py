@@ -2,10 +2,11 @@
 
 Line for line with ``repro/kernels/ref.py``. The CPU tests hold these against
 the JAX oracles; ``chip_smoke.py`` holds each CUDA kernel against them on the
-card; ``ops`` runs them for tensors that lie on the CPU. One addition,
-:func:`ssd_chunked`: the reference model's chunked scan (``repro/models/
+card; ``ops`` runs them for tensors that lie on the CPU. Two additions:
+:func:`ssd_chunked`, the reference model's chunked scan (``repro/models/
 ssm.py``), the form the scan kernel computes, which the training forward
-differentiates and a traced prefill records.
+differentiates and a traced prefill records; and :func:`unembed_ref`, the
+plain version of the unembed kernel, which replaces no TPU kernel.
 
 Two additions to ``flash_attention_ref``: it takes ``kv_lengths`` (B,), the
 valid key prefix of each row, which is how the port's prefill passes the
@@ -29,6 +30,12 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def unembed_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The unembed's product in fp32, as ``repro/models/layers.py:135-138``
+    computes it: the logits of every input the kernel does not take."""
+    return x.to(torch.float32) @ w.to(torch.float32)
 
 
 def flash_attention_ref(

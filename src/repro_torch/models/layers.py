@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common import scopes
+from repro_torch.kernels import ops, ref
 
 
 @dataclass(frozen=True)
@@ -125,7 +126,24 @@ def embed_spec(vocab: int, d_model: int) -> ParamSpec:
 def unembed(x: torch.Tensor, w_embed: torch.Tensor,
             w_head: Optional[torch.Tensor]) -> torch.Tensor:
     """Project hidden states to vocab logits in fp32 (for sampling stability);
-    the span ``model.unembed`` under the profiler."""
+    the span ``model.unembed`` under the profiler.
+
+    The logits are the fp32 product of x and the head (``head``, or the tied
+    ``embed.T``) as stored, computed by ``kernels/ops.py::unembed``: a head
+    stored in fp32, and any CPU tensor, take ``x.float() @ w.float()``
+    (``kernels/ref.py::unembed_ref``), as the reference does; a bf16 head on
+    the card takes the ``unembed`` kernel, on the tensor cores from the bf16
+    head, with no fp32 copy of it. The product of two bf16 values is exact
+    in fp32. The kernel takes each 64-term partial sum of these products
+    with the tensor cores' accumulation, whose fp32 adds truncate, and adds
+    the partial sums with rounded fp32 adds; its largest error against an
+    fp64 product of the same values is at most twice that of
+    ``x.float() @ w.float()`` (``tests/test_torch_unembed.py``). Under
+    autograd (training) the unembed is ``x.float() @ w.float()`` on either
+    device, which autograd differentiates.
+    """
     w = w_embed.T if w_head is None else w_head
     with scopes.span("model.unembed"):
-        return x.to(torch.float32) @ w.to(torch.float32)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return ref.unembed_ref(x, w)
+        return ops.unembed(x, w)

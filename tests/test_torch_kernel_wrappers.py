@@ -15,8 +15,10 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import prod_head as ph  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.kernels import unembed as ue  # noqa: E402
 
-WRAPPERS = {"prod_head": ph, "flash_attention": fa, "decode_attention": da, "ssd_scan": ss}
+WRAPPERS = {"prod_head": ph, "flash_attention": fa, "decode_attention": da, "ssd_scan": ss,
+            "unembed": ue}
 
 
 def _c_params(name):
