@@ -24,9 +24,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from harness import common, flops, profile, traffic
+from harness import common, profile, traffic
 from harness.common import log
-from harness.model import describe, make_head, make_params, seed_of
+from harness.model import make_head, make_params, seed_of
 
 
 class StopCall(Exception):
@@ -100,7 +100,8 @@ class Cell:
         self.wl = common.workload(name)
         self.cfg_json = common.config(self.wl["config"])
         self.mix = common.traffic(self.wl["traffic"])
-        self.md = describe(self.cfg_json)
+        self.arch = common.arch_of(self.cfg_json)
+        self.md = self.arch.describe(self.cfg_json)
         self.init = self.cfg_json["init"]
         self.serving = self.cfg_json.get("serving", {})
         self.kind = self.mix["kind"]
@@ -144,7 +145,8 @@ class Cell:
 
     def make_inputs(self):
         t = time.perf_counter()
-        self.params = make_params(self.md, self.init, self.seed, self.dev)
+        self.params = make_params(self.arch.layout(self.md), self.md.get("dtype", "bfloat16"),
+                                  self.init, self.seed, self.dev)
         self.head, self.edges = make_head(self.md, self.init, self.seed, self.dev)
         self.predictor = self.LengthPredictor(
             params=self.head, edges=self.edges,
@@ -328,7 +330,7 @@ class Cell:
         t_window_end = time.perf_counter()
         run = SimpleNamespace(kind=self.kind, md=self.md, mix=self.mix, init=self.init,
                               setup_s=self.setup_s, units=self.units, t0=self.t0, t1=self.t1,
-                              peaks=common.PEAKS, flops=flops, trace=None)
+                              peaks=common.PEAKS, flops=self.arch.flops, trace=None)
         run.memory_peak_bytes = None
         if self.dev.type == "cuda":
             run.memory_peak_bytes = torch.cuda.max_memory_allocated(self.dev)

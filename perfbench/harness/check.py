@@ -1,5 +1,6 @@
 """The output check: what the timed path produced, against the plain
-reference (``harness/reference.py``) worked out again from the same inputs.
+reference (the configuration's architecture's ``Reference``, on
+``harness/reference.py``) worked out again from the same inputs.
 
 ``admit``: of the first cycle's batches that completed, the heaviest (the
 widest, then the most real tokens) and one drawn from the seed. Per row:
@@ -95,7 +96,7 @@ def check_admit(cell, units, control: bool = False) -> Dict[str, Dict[str, float
         precisions += ("fp8", "fp32r") if md["family"] == "moe" else ("fp8",)
     refs = {}
     for prec in precisions:
-        ref = reference.Reference(md, params, prec, cell.serving.get("capacity_factor", 1.25))
+        ref = cell.arch.Reference(md, params, prec, cell.serving.get("capacity_factor", 1.25))
         hid = ref.hidden(segs)
         phi = torch.stack([hid[s][b, p] for w in where for (s, b, p) in w])
         refs[prec] = (phi, ref.logits(phi))
@@ -162,7 +163,7 @@ def check_collect(cell, units, control: bool = False) -> Dict[str, Dict[str, flo
     phi_p = torch.as_tensor(res["phi"][phi_rows], device=dev)
 
     def readings(prec):
-        ref = reference.Reference(md, params, prec, cell.serving.get("capacity_factor", 1.25))
+        ref = cell.arch.Reference(md, params, prec, cell.serving.get("capacity_factor", 1.25))
         hid = ref.hidden(segs)
         per_row = []
         for b in rows:

@@ -2,15 +2,32 @@
 
 Everything a cell needs is found by name: ``BENCHMARK.json`` at the root of
 the checkout names each workload's configuration and traffic mix, and each
-metric; the harness then reads
+metric; the configuration names its architecture under ``arch``. The
+harness then reads
 
 * ``perfbench/configs/<config>.json``  the configuration as it is run,
+* ``perfbench/arch/<arch>.py``         the architecture (below),
 * ``perfbench/traffic/<traffic>.json`` the traffic mix's parameters,
 * ``perfbench/metrics/<metric>.py``    the metric's reader, ``read(run)``,
 * ``perfbench/limits/<workload>.json`` the limits of the output check.
 
-A later change adds a configuration, a mix, a metric or a cell by adding
-files and entries; no file of the harness names one.
+An architecture module gives what is particular to one kind of model:
+
+* ``describe(cfg_json) -> md``: the port's ``ModelConfig`` keywords, plus
+  whatever its reference and its counts read;
+* ``layout(md)``: the port's parameter tree of ``harness.model.Leaf``, in
+  the order the weights are drawn;
+* ``Reference``: a subclass of ``harness.reference.Reference`` whose
+  ``layer(lp, x, pos, mask, Sp)`` returns the residual stream after one
+  layer, with any pieces it needs;
+* ``flops``: an object with the counts the metrics call through
+  ``run.flops`` (``prefill_flops``, ``step_flops``, ``step_bytes``,
+  ``least_s``, ``flash_least_s``, ``decode_attn_bytes``), and whatever else
+  its own metrics read.
+
+It imports nothing of the port. A later change adds a configuration, an
+architecture, a mix, a metric or a cell by adding files and entries; no
+file of the harness names one.
 """
 
 from __future__ import annotations
@@ -21,6 +38,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Callable, Dict, Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]          # perfbench/
@@ -65,14 +83,36 @@ def limits(workload_name: str) -> Dict[str, float]:
     return load_json(BENCH_DIR / "limits" / f"{workload_name}.json")["limits"]
 
 
-def metric_reader(name: str) -> Callable[[Any], Optional[float]]:
-    """``read(run)`` of ``perfbench/metrics/<name>.py`` (the name may hold
-    dots, so the file is loaded by its path)."""
-    path = BENCH_DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{name}", path)
+def _load(path: Path, module_name: str) -> ModuleType:
+    """A module of the benchmark loaded by its path (a name may hold dots)."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str) -> Callable[[Any], Optional[float]]:
+    """``read(run)`` of ``perfbench/metrics/<name>.py``."""
+    return _load(BENCH_DIR / "metrics" / f"{name}.py", f"perfbench_metric_{name}").read
+
+
+def arch(name: str) -> ModuleType:
+    """The architecture module ``perfbench/arch/<name>.py``."""
+    path = BENCH_DIR / "arch" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no architecture {name!r}: {path} is missing")
+    return _load(path, f"perfbench_arch_{name}")
+
+
+def arch_of(cfg_json: Dict[str, Any]) -> ModuleType:
+    """The architecture a configuration names under ``arch``; there is no
+    default."""
+    if "arch" not in cfg_json:
+        raise KeyError(f"configuration {cfg_json['name']!r} names no 'arch'")
+    try:
+        return arch(cfg_json["arch"])
+    except FileNotFoundError as e:
+        raise FileNotFoundError(f"configuration {cfg_json['name']!r}: {e}") from None
 
 
 def metrics_for(workload_name: str, trace: bool):

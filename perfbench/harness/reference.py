@@ -1,8 +1,11 @@
-"""The plain reference of the served models: dense and MoE decoders in plain
-PyTorch, in float32 with TF32 off, from the benchmark's own inputs (the
-weights, the prompts, the tokens to judge). It imports nothing of the port
-and takes nothing the port made: it works out again the routing, the K/V,
-the last-token hidden state φ and the logits.
+"""The plain reference's shared part: what every architecture's reference
+does alike, in plain PyTorch, in float32 with TF32 off, from the benchmark's
+own inputs (the weights, the prompts, the tokens to judge). It imports
+nothing of the port and takes nothing the port made: it works out again the
+routing, the K/V, the last-token hidden state φ and the logits. One layer's
+arithmetic is its architecture's (``perfbench/arch/<arch>.py``: a subclass
+of :class:`Reference` whose ``layer`` returns the residual stream after one
+layer).
 
 It replays what a serving call computed, layer by layer (one layer's weights
 in float32 at a time, so that it fits beside the served weights): the
@@ -16,22 +19,23 @@ t_f, so its later keys are that one key. A MoE layer dispatches the prompt
 positions of the batch as one group (B x Sp tokens in row-major order) and
 each decode step's B tokens as one group, each with its own capacity
 (``int(T k cf / E) + 1``, at least 8 and at most T k): the (token, j) pairs
-sorted stably by expert, the pairs past an expert's capacity dropped.
+sorted stably by expert, the pairs past an expert's capacity dropped
+(:meth:`Reference.kept`).
 
 ``precision="fp32r"`` is the float32 reference with the router's input
 rounded to bf16 alone: the witness of how far routing near a tie moves a MoE
 model's outputs, whatever the arithmetic elsewhere.
 
 ``precision="fp8"`` is the control: each matrix product's weight quantized
-to float8 e4m3 per output column and its activation per row, the step a
-later change to a bf16 model would be tempted to take. :func:`head` takes
-``tf32=True`` for the head's control: its float32 products with both
-operands rounded to TF32's 10-bit mantissa.
+to float8 e4m3 per output column and its activation per row
+(:meth:`Reference.weight`, :meth:`Reference.mm`), the step a later change to
+a bf16 model would be tempted to take. :func:`head` takes ``tf32=True`` for
+the head's control: its float32 products with both operands rounded to
+TF32's 10-bit mantissa.
 """
 
 from __future__ import annotations
 
-import math
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
@@ -40,7 +44,6 @@ import torch
 
 F32 = torch.float32
 F8_MAX = 448.0
-ATTN_BYTES = 1 << 30        # fp32 score bytes an attention chunk may hold
 
 
 @contextmanager
@@ -159,40 +162,6 @@ class Reference:
         pos = torch.arange(Sp, device=seg.tokens.device)[None].expand(B, Sp)
         return pos if not seg.T else torch.cat([pos, seg.dec_pos.to(torch.long)], dim=1)
 
-    def attention(self, lp, x, pos, mask) -> torch.Tensor:
-        md = self.md
-        B, N, d = x.shape
-        H, KV, hd = md["n_heads"], md["n_kv_heads"], md["head_dim"]
-        G = H // KV
-        a = lp["attn"]
-        h = self.rms(x, lp["ln1"])
-        wq, wk, wv = (self.weight(a[n], d) for n in ("wq", "wk", "wv"))
-        wo = self.weight(a["wo"], H * hd)
-        out = torch.empty_like(x)
-        rows = max(1, ATTN_BYTES // (H * N * N * 4))
-        for b0 in range(0, B, rows):
-            sl = slice(b0, b0 + rows)
-            hb = h[sl]
-            q = self.mm(hb, wq).view(-1, N, H, hd)
-            k = self.mm(hb, wk).view(-1, N, KV, hd)
-            v = self.mm(hb, wv).view(-1, N, KV, hd)
-            if md.get("qk_norm"):
-                q, k = self.rms(q, a["q_norm"]), self.rms(k, a["k_norm"])
-            q, k = self.rope(q, pos[sl]), self.rope(k, pos[sl])
-            qg = q.view(-1, N, KV, G, hd)
-            s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) / math.sqrt(hd)
-            s = s.masked_fill(~mask[sl][:, None, None], float("-inf"))
-            o = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(s, dim=-1), v)
-            out[sl] = self.mm(o.reshape(-1, N, H * hd), wo)
-        return out
-
-    def mlp(self, p, h) -> torch.Tensor:
-        d = h.shape[-1]
-        f = p["w_gate"].shape[-1]
-        g = self.mm(h, self.weight(p["w_gate"], d))
-        u = self.mm(h, self.weight(p["w_up"], d))
-        return self.mm(torch.nn.functional.silu(g) * u, self.weight(p["w_down"], f))
-
     def kept(self, ids: torch.Tensor, E: int) -> torch.Tensor:
         """ids (G, Tg, k) -> (G, Tg, k) whether each pair got a slot of
         its expert: pairs sorted stably by expert in flat (token, j) order,
@@ -210,34 +179,13 @@ class Reference:
         rank = pos - torch.gather(offsets, 1, flat)
         return (rank < cap).view(G, Tg, k)
 
-    def moe(self, p, h, Sp: int) -> torch.Tensor:
-        md = self.md
-        B, N, d = h.shape
-        E, k = md["n_experts"], md["n_experts_per_token"]
-        f = p["w_gate"].shape[-1]
-        hr = h.to(torch.bfloat16).to(F32) if self.precision == "fp32r" else h
-        probs = torch.softmax(self.mm(hr, self.weight(p["router"], d)), dim=-1)
-        top_p, ids = torch.topk(probs, k, dim=-1)                       # (B, N, k)
-        w = top_p / top_p.sum(dim=-1, keepdim=True)
-        kept = torch.empty_like(ids, dtype=torch.bool)
-        kept[:, :Sp] = self.kept(ids[:, :Sp].reshape(1, B * Sp, k), E).view(B, Sp, k)
-        if N > Sp:
-            kept[:, Sp:] = self.kept(ids[:, Sp:].transpose(0, 1), E).transpose(0, 1)
-        hf, idf = h.reshape(B * N, d), ids.reshape(B * N, k)
-        wf = (w * kept).reshape(B * N, k)
-        sel_all = (idf[..., None] == torch.arange(E, device=h.device)) & kept.reshape(B * N, k, 1)
-        out = torch.zeros_like(hf)
-        for e in range(E):
-            sel = sel_all[:, :, e]
-            rows = torch.nonzero(sel.any(dim=1))[:, 0]
-            if rows.numel() == 0:
-                continue
-            xe = hf[rows]
-            g = self.mm(xe, self.weight(p["w_gate"][e], d))
-            u = self.mm(xe, self.weight(p["w_up"][e], d))
-            y = self.mm(torch.nn.functional.silu(g) * u, self.weight(p["w_down"][e], f))
-            out.index_add_(0, rows, y * (wf[rows] * sel[rows]).sum(dim=1, keepdim=True))
-        return out.view(B, N, d)
+    # -- one layer: the architecture's -----------------------------------
+    def layer(self, lp, x: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
+              Sp: int) -> torch.Tensor:
+        """The residual stream (B, Sp + T, d) after the layer of weights
+        ``lp``, from ``x``; ``pos`` (B, N) the items' positions, ``mask``
+        (B, N, N) the keys each attends to, ``Sp`` the prompt width."""
+        raise NotImplementedError(f"{type(self).__name__} gives no layer")
 
     # -- whole calls -------------------------------------------------------
     @torch.no_grad()
@@ -251,12 +199,7 @@ class Reference:
             aux = [(self.positions(s), self.mask(s)) for s in segs]
             for lp in self.p["layers"]:
                 for i, s in enumerate(segs):
-                    x = xs[i]
-                    x = x + self.attention(lp, x, *aux[i])
-                    h = self.rms(x, lp["ln2"])
-                    x = x + (self.moe(lp["moe"], h, s.tokens.shape[1]) if "moe" in lp
-                             else self.mlp(lp["mlp"], h))
-                    xs[i] = x
+                    xs[i] = self.layer(lp, xs[i], *aux[i], s.tokens.shape[1])
             return [self.rms(x, self.p["final_norm"]) for x in xs]
 
     @torch.no_grad()

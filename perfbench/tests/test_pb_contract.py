@@ -4,8 +4,10 @@ resolved to the file the harness reads."""
 import json
 import re
 
+import pytest
+
 import conftest
-from harness import common
+from harness import common, reference
 
 B = json.loads((conftest.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
@@ -42,15 +44,38 @@ def test_entries():
     assert any(m["name"] == "setup_s" and "workloads" not in m for m in B["end_to_end"])
 
 
+# keys that name a width, which no configuration may cut: a hidden,
+# intermediate, latent, state or projection size, a head size, an expansion
+# factor, a key ending in _dim or _rank, the experts a token routes to
+WIDTH = re.compile(r".*(_dim|_rank|hidden_size|intermediate_size|head_size|state_size|"
+                   r"expand|latent.*|proj.*)|num_experts_per_tok")
+# what every architecture module gives, and the counts the metrics call
+SEAM = ("describe", "layout", "Reference", "flops")
+COUNTS = ("prefill_flops", "step_flops", "step_bytes", "least_s", "flash_least_s",
+          "decode_attn_bytes")
+
+
 def test_every_name_resolves():
     cfgs = {c["name"] for c in B["configs"]}
     for c in B["configs"]:
         assert (conftest.ROOT / c["file"]).is_file() and c["file"].startswith("perfbench/")
-        assert common.config(c["name"])["name"] == c["name"]
-        assert "num_hidden_layers" in c["reduced"] or not c["reduced"]
+        cfg = common.config(c["name"])
+        assert cfg["name"] == c["name"]
+        arch = common.arch_of(cfg)
+        assert all(hasattr(arch, k) for k in SEAM), cfg["arch"]
+        assert issubclass(arch.Reference, reference.Reference)
+        assert all(callable(getattr(arch.flops, k)) for k in COUNTS), cfg["arch"]
+        # each published key cut is explained in the file, as model-configs
+        # section 4 asks (the depth, the experts held, the vocabulary slice)
+        assert set(c["reduced"]) == set(cfg["reduced"]), c["name"]
+        for k in c["reduced"]:
+            assert NAME.fullmatch(k) and not WIDTH.fullmatch(k), (c["name"], k)
+            cut = cfg["reduced"][k]
+            assert set(cut) == {"published", "here", "why"} and cut["why"], (c["name"], k)
+            assert cfg[k] == cut["here"] != cut["published"], (c["name"], k)
     used = set()
     for w in B["workloads"]:
-        assert w["config"] in cfgs and w["chips"] == 1
+        assert w["config"] in cfgs and w["chips"] in (1, 4)
         used.add(w["config"])
         common.traffic(w["traffic"])
         assert common.limits(w["name"])
@@ -70,3 +95,16 @@ def test_every_cell_reports_enough():
         e2e = [m["name"] for m in common.metrics_for(w["name"], False)]
         assert "setup_s" in e2e and len(e2e) >= 2
         assert common.metrics_for(w["name"], True)
+
+
+@pytest.mark.parametrize("arch", [None, "no_such_arch"])
+def test_a_configuration_without_its_arch_fails_by_name(arch):
+    """No architecture is assumed: a configuration that names none, or one
+    whose module is missing, fails at once and names the configuration."""
+    cfg = dict(common.config("qwen25-7b"), name="cfg-under-test")
+    if arch is None:
+        del cfg["arch"]
+    else:
+        cfg["arch"] = arch
+    with pytest.raises((KeyError, FileNotFoundError), match="cfg-under-test"):
+        common.arch_of(cfg)

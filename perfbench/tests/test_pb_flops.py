@@ -1,11 +1,13 @@
 """The counters of operations and bytes against hand arithmetic at the
-cells' shapes."""
+cells' shapes: the decoder's counts (``perfbench/arch/decoder.py``)."""
 
-from harness import common, flops
-from harness.model import describe, n_params
+from harness import common
+from harness.model import n_params
 
-QWEN = describe(common.config("qwen25-7b"))
-MOE = describe(common.config("qwen3-moe-235b-a22b"))
+DECODER = common.arch("decoder")
+flops = DECODER.flops
+QWEN = DECODER.describe(common.config("qwen25-7b"))
+MOE = DECODER.describe(common.config("qwen3-moe-235b-a22b"))
 
 
 def test_qwen_token_flops():
@@ -36,7 +38,8 @@ def test_step_bytes():
     want = (28 * layer + 3584 * 152064 + 3584 + 4 * 3584) * 2 + 28 * 2 * 100 * 4 * 128 * 2
     assert flops.step_bytes(QWEN, 4, 100) == want
     # all of the weights but the embedding table, once
-    assert abs(flops.step_bytes(QWEN, 0, 0) / 2 - (n_params(QWEN) - 152064 * 3584)) < 1
+    assert abs(flops.step_bytes(QWEN, 0, 0) / 2
+               - (n_params(DECODER.layout(QWEN)) - 152064 * 3584)) < 1
 
 
 def test_moe_step_bytes_with_routed_experts():

@@ -217,3 +217,129 @@ def test_cell_mix_config_metric_added_as_files(tiny_tree):
     assert {"padded_share.admit", "ttft_ms.p95", "setup_s"} <= set(res["metrics"])
     after = {p: p.read_bytes() for p in before}
     assert after == before
+
+
+# an architecture the harness has not seen: a MoE decoder with the port's
+# always-on shared expert (``moe.shared.*`` of ``models/moe.py::moe_spec``)
+SHARED_ARCH = '''"""A MoE decoder whose every MoE layer adds an always-on shared expert, a
+SiLU-gated MLP of width moe_d_ff x n_shared_experts, to its routed experts'
+output."""
+
+from harness import common
+from harness.model import Leaf
+
+decoder = common.arch("decoder")
+
+
+def describe(cfg_json):
+    md = decoder.describe(cfg_json)
+    md["n_shared_experts"] = cfg_json["n_shared_experts"]
+    return md
+
+
+def layout(md):
+    tree = decoder.layout(md)
+    d, f = md["d_model"], md["moe_d_ff"] * md["n_shared_experts"]
+    for lp in tree["layers"]:
+        lp["moe"]["shared"] = {"w_gate": Leaf((d, f), "matrix", d),
+                               "w_up": Leaf((d, f), "matrix", d),
+                               "w_down": Leaf((f, d), "matrix", f)}
+    return tree
+
+
+class Reference(decoder.Reference):
+    def layer(self, lp, x, pos, mask, Sp):
+        x = x + self.attention(lp, x, pos, mask)
+        h = self.rms(x, lp["ln2"])
+        return x + (self.moe(lp["moe"], h, Sp) + self.mlp(lp["moe"]["shared"], h))
+
+
+class Flops(decoder.Flops):
+    def shared_weights(self, md):
+        return 3 * md["d_model"] * md["moe_d_ff"] * md["n_shared_experts"]
+
+    def ffn_applied(self, md):
+        return super().ffn_applied(md) + self.shared_weights(md)
+
+    def ffn_resident(self, md, experts_read=None):
+        return super().ffn_resident(md, experts_read) + self.shared_weights(md)
+
+
+flops = Flops()
+'''
+SHARED_CELLS = {"admit": "tiny-shared.admit", "collect": "tiny-shared.collect"}
+
+
+def _add_shared_arch(root):
+    """The architecture, a configuration that names it, its cells' limits
+    and entries: new files, and entries in BENCHMARK.json."""
+    pb = root / "perfbench"
+    (pb / "arch" / "tiny_shared.py").write_text(SHARED_ARCH)
+    cfg = json.loads((pb / "configs" / "tiny-moe.json").read_text())
+    cfg.update({"name": "tiny-shared", "arch": "tiny_shared", "n_shared_experts": 1})
+    (pb / "configs" / "tiny-shared.json").write_text(json.dumps(cfg))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "tiny-shared", "source": "a test",
+                             "file": "perfbench/configs/tiny-shared.json", "reduced": [],
+                             "why": "a test"})
+    for kind, cell in SHARED_CELLS.items():
+        (pb / "limits" / f"{cell}.json").write_text(
+            (pb / "limits" / f"tiny-moe.{kind}.json").read_text())
+        bench["workloads"].append({"name": cell, "config": "tiny-shared",
+                                   "traffic": f"tiny-{kind}", "chips": 1, "why": "a test"})
+        for m in bench["end_to_end"]:
+            if "workloads" in m and f"tiny-moe.{kind}" in m["workloads"]:
+                m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def _drop_shared_expert(monkeypatch):
+    """The port's MoE layer leaves its shared expert's output out."""
+    from repro_torch.models import moe
+    monkeypatch.setattr(moe, "mlp_apply", lambda p, x, act: torch.zeros_like(x))
+
+
+@pytest.mark.parametrize("kind", ["admit", "collect"])
+def test_architecture_added_as_files(tiny_tree, monkeypatch, kind):
+    """A new architecture is a new module under ``perfbench/arch``, a
+    configuration that names it, limits and entries: no file that was there
+    is edited, its cells run correct, and the port's shared expert left out
+    is caught."""
+    root = tiny_tree
+    before = {p: p.read_bytes() for p in (root / "perfbench").rglob("*") if p.is_file()}
+    _add_shared_arch(root)
+    res = _execute(SHARED_CELLS[kind])
+    assert res["correct"] is True
+    assert {m["name"] for m in common.metrics_for(SHARED_CELLS[kind], False)} == set(
+        res["metrics"])
+    assert {p: p.read_bytes() for p in before} == before
+    _drop_shared_expert(monkeypatch)
+    assert _execute(SHARED_CELLS[kind])["correct"] is False
+
+
+def test_added_architecture_counts_its_leaves(tiny_tree):
+    """The new architecture's layout holds the shared expert's leaves, the
+    port's parameter tree takes them, and its counts add its products."""
+    from repro_torch.common.config import ModelConfig
+    from repro_torch.models.moe import moe_spec
+    from harness.model import leaves, n_params
+    _add_shared_arch(tiny_tree)
+    cfg = common.config("tiny-shared")
+    arch, dec = common.arch_of(cfg), common.arch("decoder")
+    md = arch.describe(cfg)
+    d, f, L = md["d_model"], md["moe_d_ff"], md["n_layers"]
+    assert n_params(arch.layout(md)) - n_params(dec.layout(md)) == L * 3 * d * f
+    fields = set(ModelConfig.__dataclass_fields__)
+    port = moe_spec(ModelConfig(**{k: v for k, v in md.items() if k in fields}))
+    ours = {p[3:]: leaf.shape for p, leaf in leaves(arch.layout(md))
+            if p[:3] == ("layers", 0, "moe")}
+    assert ours == {p: tuple(spec.shape) for p, spec in _flat(port)}
+    assert arch.flops.token_flops(md) - dec.flops.token_flops(md) == 2 * L * 3 * d * f
+    assert (arch.flops.step_bytes(md, 4, 10) - dec.flops.step_bytes(md, 4, 10)
+            == L * 3 * d * f * 2)
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _flat(v, path + (k,))]
+    return [(path, tree)]
