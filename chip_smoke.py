@@ -45,7 +45,11 @@ script exits non-zero without its result line:
    self-attention (S=224) and its cross-attention (non-causal, Sq=224 against
    1,500 keys), Qwen2-VL's prefill (12 heads on 2, hd=128, G=6); decode on
    Whisper's self cache, its static 1,500-slot cross cache (every key valid)
-   and at Qwen2-VL's G=6 (with the split sweep); then the unembed kernel
+   and at Qwen2-VL's G=6 (with the split sweep); then Kimi-K2-Instruct's
+   latent attention at prefill (``mla_kernel_checks``): flash with q and k
+   of 192 columns, v and o of 128 and YaRN's scale 0.13086, at the admit
+   cell's widest batch (B=8, S=2,048, ragged) and at S=512, SDPA beside it
+   with the same scale and V; then the unembed kernel
    (``unembed_kernel_checks``) at every served bf16 model's d and vocabulary,
    untied or tied as the model is, at B=8 and 4 and at the collect cells'
    512 rows, against the fp32 product within 1e-5 of the logits' scale, a
@@ -97,8 +101,9 @@ script exits non-zero without its result line:
      head;
    - the MoE family at full width, its depth cut to what one 80 GB card
      holds: Qwen3-MoE-235B-A22B (12 of 94 layers, 128 experts top-8,
-     qk_norm; 61.34 GB of bf16 weights) and Kimi-K2 (1 of 61 layers, 384
-     experts top-8 and a shared expert, hd=112; 38.85 GB), r=2: flash,
+     qk_norm; 61.34 GB of bf16 weights) and Kimi-K2's GQA stand-in (1 of
+     61 layers, 384 experts top-8 and a shared expert, hd=112; 38.85 GB;
+     not the published model, which ``mla_phase`` runs), r=2: flash,
      decode and head. Per MoE layer at the prefill the capacity, the
      (token, j) pairs dropped and the experts with no token are printed,
      at a decode step the distinct experts routed; the step is timed
@@ -106,7 +111,14 @@ script exits non-zero without its result line:
      and only the experts the step routed to;
    - Qwen2-VL-2B (28 layers, d=1536, 12 heads on 2, M-RoPE, a tied
      151,936-token vocabulary) on text tokens, where its three M-RoPE
-     streams are equal, r=2: flash, decode and head.
+     streams are equal, r=2: flash, decode and head;
+   - Kimi-K2-Instruct as published (``mla_phase``: latent attention, the
+     sigmoid router, a shared expert, the dense first layer), cut to that
+     layer and one MoE layer with one rank's 12 of 384 experts, at the
+     admit cell's B=8, S=2,048, r=1, 16 new tokens: flash once a layer a
+     prefill at q/k 192 and v 128 with YaRN's scale (its first call held
+     against the plain version), no decode kernel (the absorbed decode),
+     the unembed; a prefill and a decode step timed.
    Every model also runs the unembed kernel, once for each generation's
    first token and once a decode step.
    The launch counts are set to 0 before each model's run and read after it;
@@ -742,7 +754,8 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
     other splits. ``flash_rows``: (B, S, H, KV, hd, dtype, lengths, window,
     label), causal with S keys, or with two more fields (causal, Skv): the
     lengths are the keys' (an encoder: non-causal, Skv = S; cross-attention:
-    non-causal, Skv != S); ``decode_rows``: (B, Sc, H, KV, hd, dtype,
+    non-causal, Skv != S), and two more (hd_v, scale) where V is narrower
+    than Q and K and the scores take a given scale (MLA); ``decode_rows``: (B, Sc, H, KV, hd, dtype,
     lengths, label, sweep). Inputs are unit normal, drawn from ``seed``.
     Where no key is masked, SDPA is called with no mask."""
     import torch.nn.functional as F
@@ -754,23 +767,30 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
     bf = torch.bfloat16
     rows = []
 
-    def flash_row(B, S, Hq, Kv, hd, dtype, lens, window, label, causal=True, Skv=None):
+    def flash_row(B, S, Hq, Kv, hd, dtype, lens, window, label, causal=True, Skv=None,
+                  hd_v=None, scale=None):
         tol = 2e-2 if dtype == bf else 2e-5
-        Skv = Skv or S
+        Skv, hd_v = Skv or S, hd_v or hd
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         q = torch.randn(B, S, Hq, hd, generator=g, device=dev).to(dtype)
         k = torch.randn(B, Skv, Kv, hd, generator=g, device=dev).to(dtype)
-        v = torch.randn(B, Skv, Kv, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, Skv, Kv, hd_v, generator=g, device=dev).to(dtype)
+        n0 = kernels["flash_attention"].launches
         call = lambda: kernels["flash_attention"](q, k, v, causal=causal, window=window,
-                                                  kv_lengths=lens)
+                                                  kv_lengths=lens, scale=scale)
         out, again = call(), call()
+        check(kernels["flash_attention"].launches == n0 + 2,
+              f"flash_attention hd={hd} {label}: two calls, "
+              f"{kernels['flash_attention'].launches - n0} launches")
         plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                                kv_lengths=lens)
+                                                kv_lengths=lens, scale=scale)
         want = plain()
         torch.cuda.synchronize()
+        wide = f"hd={hd}" + (f"/{hd_v}" if hd_v != hd else "")
+        check(out.shape == (B, S, Hq, hd_v), f"flash_attention {wide} {label}: {out.shape}")
         check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
-              f"flash_attention hd={hd} {label}: max err {max_err(torch, out, want)}")
-        check(torch.equal(out, again), f"flash_attention hd={hd} {label}: two calls differ")
+              f"flash_attention {wide} {label}: max err {max_err(torch, out, want)}")
+        check(torch.equal(out, again), f"flash_attention {wide} {label}: two calls differ")
         G = Hq // Kv
         qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
                       v.repeat_interleave(G, dim=2).transpose(1, 2))
@@ -783,21 +803,25 @@ def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: 
         mask = (allowed[None] & (kpos[None, None, :] < lens[:, None, None]))[:, None]
         pairs = int(mask.sum())
         sdpa_mask = None if pairs == mask.numel() else mask
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
-        backend = sdpa_backend(qt, kt, vt, sdpa_mask)
+        given = {} if scale is None else {"scale": scale}
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask, **given)
+        backend = sdpa_backend(qt, kt, vt, sdpa_mask, **given)
         eb = 2 if dtype == bf else 4
-        nbytes = eb * (2 * B * S * Hq * hd + 2 * int(lens.long().sum()) * Kv * hd) + 4 * B
-        flops = 4 * hd * Hq * pairs
+        # q and k at hd, v and o at hd_v
+        nbytes = eb * (B * S * Hq * (hd + hd_v)
+                       + int(lens.long().sum()) * Kv * (hd + hd_v)) + 4 * B
+        flops = 2 * (hd + hd_v) * Hq * pairs
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == bf else FP32_FLOPS)
         empty = int((~mask.any(-1)).sum())
-        print(f"flash_attention hd={hd} {label}: SDPA backend {backend}; {pairs} (query, key) "
+        print(f"flash_attention {wide} {label}: SDPA backend {backend}; {pairs} (query, key) "
               f"pairs, {empty} query rows with no valid key (padded rows included)")
         kind = "causal" if causal else "non-causal"
         keys = f"Sq={S} Skv={Skv}" if Skv != S else f"S={S}"
         ragged = "all keys valid" if int(lens.min()) == Skv else "ragged"
         rows.append({"name": "flash_attention",
-                     "shape": f"B={B} {keys} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} {kind} "
-                              f"{ragged}{f' window={window}' if window else ''} ({label})",
+                     "shape": f"B={B} {keys} H={Hq} KV={Kv} {wide} {str(dtype)[6:]} {kind} "
+                              f"{ragged}{f' window={window}' if window else ''}"
+                              f"{f' scale={scale:.5f}' if scale is not None else ''} ({label})",
                      "max_abs_err": max_err(torch, out, want),
                      "ms": time_ms(call), "plain_ms": time_ms(plain, iters=3),
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
@@ -929,6 +953,140 @@ def moe_kernel_checks(torch, ref, kernels):
               (8, 576, 64, 8, 112, bf, DECODE_SERVE_LENS, "kimi serve", True),
               (4, 100, 8, 1, 112, f32, (100, 1, 57, 33), "fp32", False)]
     return width_checks(torch, ref, kernels, flash, decode, seed=20, what="moe kernels")
+
+
+# an admit batch of Kimi-K2-Instruct's cell at its widest: 8 prompts padded
+# to 2,048, lognormal lengths (median 512) from 64 to 2,048
+KIMI_ADMIT_LENS = (2048, 1530, 977, 731, 512, 389, 202, 64)
+
+
+def kimi_k2_instruct(depth: int):
+    """Kimi-K2-Instruct as its ``config.json`` publishes it, as the
+    benchmark holds it (``perfbench/configs/kimi-k2-instruct.json``, read
+    through ``perfbench/arch/mla.py``): latent attention, the sigmoid router
+    over 384 experts with its bias and scale, a shared expert, the dense
+    first layer and YaRN, holding one expert-parallel rank's block of 12
+    experts; cut to ``depth`` layers."""
+    sys.path.insert(0, str(ROOT / "perfbench"))
+    from harness import common
+
+    from repro_torch.common.config import ModelConfig
+
+    md = common.arch("mla").describe(common.config("kimi-k2-instruct"))
+    return ModelConfig(**md).with_overrides(n_layers=depth)
+
+
+def mla_kernel_checks(torch, ref, kernels):
+    """Phase 3, Kimi-K2-Instruct's latent attention at prefill
+    (``models/mla.py``), through ``width_checks``: the flash kernel with Q
+    and K of 192 columns (128 nope + 64 rope), V and O of 128, 64 heads (K
+    and V expanded a head each, so H = KV) and YaRN's softmax scale
+    (0.13086), in bf16, at the admit cell's widest batch (B=8, S=2,048,
+    ``KIMI_ADMIT_LENS``) and at B=8, S=512 with the serve phases' ragged
+    lengths; SDPA timed beside it with the same scale and the narrower V.
+    No decode row: the absorbed decode is batched products."""
+    from repro_torch.models import mla
+
+    bf, scale = torch.bfloat16, mla.softmax_scale(kimi_k2_instruct(2))
+    flash = [(8, 2048, 64, 64, 192, bf, KIMI_ADMIT_LENS, 0, "kimi-k2-instruct admit", True,
+              None, 128, scale),
+             (8, 512, 64, 64, 192, bf, G3_SERVE_LENS, 0, "kimi-k2-instruct serve", True,
+              None, 128, scale)]
+    return width_checks(torch, ref, kernels, flash, [], seed=32, what="mla kernels")
+
+
+def mla_phase(torch, ref, counters):
+    """Phase 4 for Kimi-K2-Instruct (``kimi_k2_instruct``) at its published
+    widths, cut to the dense layer and one MoE layer, on the main path
+    (``build_model`` -> ``RealEngine.repeated_sampling``) at the admit
+    cell's widest batch (B=8, S=2,048, ``KIMI_ADMIT_LENS``), r=1, 16 new
+    tokens: each prefill launches the flash kernel once a layer, with q and
+    k of 192 columns, v of 128, the prompt lengths and YaRN's scale; the
+    absorbed decode launches no attention kernel; the unembed one a token.
+    The first layer's flash call is held on its own inputs against the plain
+    version (within 2e-2 of sum p|v|, as the long phase holds V as served), a
+    second call bit-identical. A prefill and a decode step are timed."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import mla
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serving.engine import RealEngine
+
+    dev = torch.device("cuda")
+    cfg = kimi_k2_instruct(2)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=dev)
+    n_params = sum(int(p.numel()) for p in _leaves(params))
+    B, Sp, r, max_new = 8, 2048, 1, 16
+    g = torch.Generator().manual_seed(32)
+    prompts = torch.randint(3, cfg.vocab_size, (B, Sp), generator=g).numpy()
+    plens = np.array(KIMI_ADMIT_LENS)
+    eng = RealEngine(model, params, max_new=max_new)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with capture(ops, "flash_attention") as fl:
+        lens, phi = eng.repeated_sampling(prompts, plens, r=r, seed=0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    check(phi.shape == (B, cfg.d_model) and np.isfinite(phi).all(),
+          "kimi-k2-instruct: phi shape/finite")
+    check(lens.min() >= 1 and lens.max() <= max_new, "kimi-k2-instruct: lengths range")
+    expect = {"flash_attention": r * cfg.n_layers, "decode_attention": 0, "ssd_scan": 0,
+              "prod_head": 0}
+    if lens.min() == max_new:
+        expect["unembed"] = r * (max_new + 1)
+    for k, n in expect.items():
+        check(launches[k] == n, f"kimi-k2-instruct: {k} launched {launches[k]} times, "
+              f"expected {n}")
+    check(launches["unembed"] > 0, "kimi-k2-instruct: the unembed was not launched")
+
+    (q, k, v), kw = fl.args, fl.kwargs
+    scale = mla.softmax_scale(cfg)
+    check(q.shape == (B, Sp, 64, 192) and k.shape == (B, Sp, 64, 192)
+          and v.shape == (B, Sp, 64, 128), f"kimi-k2-instruct: flash took q {tuple(q.shape)} "
+          f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    check(kw["scale"] == scale and abs(scale - 0.13086) < 5e-6,
+          f"kimi-k2-instruct: flash scale {kw['scale']}, want {scale}")
+    check(kw["kv_lengths"].tolist() == list(KIMI_ADMIT_LENS),
+          f"kimi-k2-instruct: flash kv_lengths {kw['kv_lengths'].tolist()}")
+    call = lambda: counters["flash_attention"](q, k, v, causal=True,
+                                               kv_lengths=kw["kv_lengths"], scale=scale)
+    out, again = call(), call()
+    want = ref.flash_attention_ref(q, k, v, causal=True, kv_lengths=kw["kv_lengths"],
+                                   scale=scale)
+    mag = ref.flash_attention_ref(q, k, v.abs(), causal=True, kv_lengths=kw["kv_lengths"],
+                                  scale=scale)
+    torch.cuda.synchronize()
+    worst, beyond = held(out, want, mag)
+    check(beyond == 0, f"kimi-k2-instruct: layer 0's flash call {worst:.3f} x 2e-2 of "
+          f"sum p|v| from the plain version ({beyond} elements beyond)")
+    check(torch.equal(out, again), "kimi-k2-instruct: layer 0's flash call, two calls differ")
+
+    tokens = torch.as_tensor(prompts, device=dev)
+    valid = torch.arange(Sp, device=dev)[None, :] < torch.as_tensor(plens, device=dev)[:, None]
+    with torch.no_grad():
+        prefill_ms = time_ms(lambda: model.prefill(params, tokens, attn_valid=valid,
+                                                   logits_mode="none"), iters=3, warmup=1)
+        cache = model.init_cache(B, Sp + max_new, device=dev)
+        check(tuple(cache[0][0].shape) == (B, Sp + max_new, 576),
+              f"kimi-k2-instruct: latent cache entry {tuple(cache[0][0].shape)}")
+        pos = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+        nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
+        step_ms = time_ms(lambda: model.decode_step(params, nxt, cache, pos, pos + 1),
+                          iters=10, warmup=2)
+    print(f"kimi-k2-instruct: {n_params / 1e9:.3f}B params (bf16, the dense layer and one MoE "
+          f"layer of 12 held experts of 384, published widths); repeated_sampling B={B} "
+          f"Sp={Sp} r={r} max_new={max_new}: {gen_s:.2f} s (param_count() "
+          f"{cfg.param_count() / 1e9:.3f}B, without the norms and the router bias); flash q/k 192, v 128, scale "
+          f"{scale:.6f}, held at {worst:.3f} x 2e-2 of sum p|v|; prefill {prefill_ms:.2f} ms, "
+          f"decode step (Sc={Sp + max_new}) {step_ms:.2f} ms; launches {json.dumps(launches)}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches
 
 
 WHISPER_PLENS = (224, 32, 181, 97, 212, 64, 150, 129)     # decoder prompts, padded to 224
@@ -4022,6 +4180,7 @@ def main() -> int:
     rows = kernel_checks(torch, ref, kernels)
     rows += gemma3_kernel_checks(torch, ref, kernels)
     rows += moe_kernel_checks(torch, ref, kernels)
+    rows += mla_kernel_checks(torch, ref, kernels)
     rows += encdec_vlm_kernel_checks(torch, ref, kernels)
     rows += unembed_kernel_checks(torch, ref, kernels)
     mark("kernels")
@@ -4039,6 +4198,10 @@ def main() -> int:
         gc.collect()                 # each model's weights go before the next's
         torch.cuda.empty_cache()
         mark(name)
+    by_phase["kimi-k2-instruct"] = mla_phase(torch, ref, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("kimi-k2-instruct")
     by_phase["long"] = long_phase(torch, ref, kernels)
     gc.collect()
     torch.cuda.empty_cache()

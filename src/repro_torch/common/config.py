@@ -39,6 +39,27 @@ class ModelConfig:
     n_shared_experts: int = 0        # kimi-k2 style always-on shared expert(s)
     moe_d_ff: int = 0                # per-expert hidden size (0 -> d_ff)
     router_aux_coef: float = 0.01
+    n_dense_layers: int = 0          # leading layers with the dense MLP (d_ff) before the MoE ones
+    router_scoring: str = "softmax"  # softmax | sigmoid (DeepSeek-V3's noaux_tc: selection by
+                                     # score + a correction bias, weights the unbiased scores)
+    routed_scale: float = 1.0        # the combine weights' scale after normalising over the k
+    experts_held: int = 0            # experts this device holds (0 -> all n_experts), a block
+    expert_offset: int = 0           # of the router's n_experts starting here
+
+    # --- multi-head latent attention (DeepSeek-V3 / Kimi-K2; models/mla.py) --
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0            # > 0: every attention layer is MLA
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    # --- YaRN rope scaling (models/rope.py::yarn_inv_freq); factor 0 = plain RoPE
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     # --- SSM (mamba2 / zamba2) ----------------------------------------------
     ssm_state: int = 0               # d_state N
@@ -64,6 +85,8 @@ class ModelConfig:
     predictor_bin_max: float = 8192.0
 
     def __post_init__(self):
+        if self.head_dim == 0 and self.kv_lora_rank:
+            object.__setattr__(self, "head_dim", self.qk_nope_head_dim + self.qk_rope_head_dim)
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.family == "moe" and self.moe_d_ff == 0:
@@ -101,8 +124,10 @@ class ModelConfig:
         if self.family in ("dense", "vlm"):
             total = L * (attn + ffn(self.d_ff))
         elif self.family == "moe":
-            experts = (self.n_experts + self.n_shared_experts) * ffn(self.moe_d_ff)
-            total = L * (attn + experts + d * self.n_experts)
+            experts = (self.held_experts + self.n_shared_experts) * ffn(self.moe_d_ff)
+            dense = self.n_dense_layers
+            total = (L * attn + dense * ffn(self.d_ff)
+                     + (L - dense) * (experts + d * self.n_experts))
         elif self.family == "ssm":
             total = L * self._ssm_layer_params()
         elif self.family == "hybrid":
@@ -127,9 +152,19 @@ class ModelConfig:
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return int(self.n_layers * layer + emb)
 
+    @property
+    def held_experts(self) -> int:
+        """The experts whose weights this device holds."""
+        return self.experts_held or self.n_experts
+
     def _attn_params(self) -> int:
-        d, hd = self.d_model, self.head_dim
-        return d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        d, hd, H = self.d_model, self.head_dim, self.n_heads
+        if self.kv_lora_rank:           # MLA's latent projections (models/mla.py)
+            rope, r = self.qk_rope_head_dim, self.kv_lora_rank
+            return (d * self.q_lora_rank + self.q_lora_rank * H * hd + d * (r + rope)
+                    + r * H * (self.qk_nope_head_dim + self.v_head_dim)
+                    + H * self.v_head_dim * d)
+        return d * H * hd + 2 * d * self.n_kv_heads * hd + H * hd * d
 
     def _ssm_layer_params(self) -> int:
         d = self.d_model

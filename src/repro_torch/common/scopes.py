@@ -86,6 +86,12 @@ def span(name: str):
     return _NULL
 
 
+def recording() -> bool:
+    """Whether the profiler records (when spans and counters are live): a
+    counter whose input costs a kernel to make is made only then."""
+    return bool(_PROFILER._is_profiler_enabled)
+
+
 def count(name: str, n: int = 1) -> None:
     """Add the host integer ``n`` to counter ``name`` while the profiler records."""
     if _PROFILER._is_profiler_enabled:

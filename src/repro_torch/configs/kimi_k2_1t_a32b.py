@@ -1,6 +1,12 @@
 """Kimi K2 — trillion-parameter MoE, 384 experts top-8 [arXiv:2501.kimi2].
 
 GQA kv=8, per-expert d_ff=2048, one shared expert (K2 paper table).
+
+A GQA stand-in kept under the JAX package's name, and not the published
+model: Kimi-K2-Instruct has multi-head latent attention, a sigmoid router
+with a correction bias and a leading dense layer. The published model, as
+its ``config.json`` gives it, is ``perfbench/configs/kimi-k2-instruct.json``
+(served through ``models/mla.py`` and ``models/moe.py``'s sigmoid router).
 """
 
 from repro_torch.common.config import ModelConfig

@@ -53,6 +53,14 @@
 //    columns stored: 14% more P V work than the true width, and hd = 128's
 //    registers and 96 KB of shared memory.
 //
+//  * MLA's expanded prefill (Kimi-K2, models/mla.py) has Q and K of 192
+//    columns (128 nope + 64 rope) and V of 128: Tile<192, 128>. Q and K take
+//    three panels, Q K^T runs 12 exact K steps; V comes by its own tensor map
+//    at its true width into two panels, P V runs at N = 128 with 64 fp32
+//    accumulators a thread, and O is written 128 columns wide. Shared memory
+//    holds Q 48 KB and K/V 2 x (24 + 16) KB. The scale comes from the caller
+//    (192^-0.5 times YaRN's mscale^2), as it does for every width.
+//
 // fp32 (tiny-lm only, off the main path): flash_fwd_simt, both products on
 // the CUDA cores in fp32 from shared memory, 64 query rows by 32-key tiles.
 // A thread owns 16-column strides of O: ceil(hd / 16) of them, the V tile
@@ -87,17 +95,22 @@ constexpr int kBM = 128;       // query rows per block
 constexpr int kThreads = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
 constexpr int kStages = 2;     // K/V tiles in the shared-memory ring
 
-template <int HD>
+// HD: the width of Q and K; HDV: the width of V and O (HD but for MLA's 192 / 128)
+template <int HD, int HDV = HD>
 struct Tile {
-  static constexpr int TW = HD <= 64 ? HD : (HD + 63) / 64 * 64;  // whole panels
+  static_assert(HDV == HD || (HD >= 64 && HDV >= 64), "V shares Q and K's swizzle");
+  static constexpr int TW = HD <= 64 ? HD : (HD + 63) / 64 * 64;     // whole panels
+  static constexpr int TWV = HDV <= 64 ? HDV : (HDV + 63) / 64 * 64;  // V's and O's
   static constexpr int KD = (HD + 15) / 16 * 16;   // columns Q K^T runs over
   static constexpr int BN = TW >= 128 ? 64 : 128;  // keys per KV tile
   static constexpr int SWZ = HD >= 64 ? 128 : 64;  // bytes per shared-memory row
   static constexpr int PW = SWZ / 2;               // columns per panel
-  static constexpr int NP = TW / PW;               // column panels of a tile
+  static constexpr int NP = TW / PW;               // column panels of a Q or K tile
+  static constexpr int NPV = TWV / PW;             // column panels of a V tile
   static constexpr int Q_BYTES = kBM * TW * 2;
-  static constexpr int KV_BYTES = BN * TW * 2;
-  static constexpr int BAR_OFF = Q_BYTES + 2 * kStages * KV_BYTES;
+  static constexpr int K_BYTES = BN * TW * 2;
+  static constexpr int V_BYTES = BN * TWV * 2;
+  static constexpr int BAR_OFF = Q_BYTES + kStages * (K_BYTES + V_BYTES);
   static constexpr int SMEM = BAR_OFF + (3 * kStages + 1) * 8 + 1024;  // + slack to align to 1 KB
 };
 
@@ -171,19 +184,19 @@ __device__ __forceinline__ void empty_row_sums(const __nv_bfloat16* __restrict__
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, const __nv_bfloat16* __restrict__ vg,
                const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ o, int B, int Sq,
                int Skv, int H, int KV, int causal, int window, float scale_log2) {
-  using T = Tile<HD>;
+  using T = Tile<HD, HDV>;
   constexpr int BN = T::BN, SWZ = T::SWZ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;                    // [NP][kBM][PW]
   uint8_t* Ks = smem + T::Q_BYTES;             // [kStages][NP][BN][PW]
-  uint8_t* Vs = Ks + kStages * T::KV_BYTES;    // [kStages][NP][BN][PW]
+  uint8_t* Vs = Ks + kStages * T::K_BYTES;     // [kStages][NPV][BN][PW]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
   uint64_t* k_full = q_full + 1;               // [kStages]
   uint64_t* v_full = k_full + kStages;         // [kStages]
@@ -224,14 +237,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(empty + s, (j / kStages - 1) & 1);
         const int kv0 = kv_begin + j * BN;
-        mbar_expect_tx(k_full + s, T::KV_BYTES);
+        mbar_expect_tx(k_full + s, T::K_BYTES);
 #pragma unroll
         for (int p = 0; p < T::NP; ++p)
-          tma_load_4d(Ks + s * T::KV_BYTES + p * BN * SWZ, &tm_k, k_full + s, p * T::PW, g, kv0, b);
-        mbar_expect_tx(v_full + s, T::KV_BYTES);
+          tma_load_4d(Ks + s * T::K_BYTES + p * BN * SWZ, &tm_k, k_full + s, p * T::PW, g, kv0, b);
+        mbar_expect_tx(v_full + s, T::V_BYTES);
 #pragma unroll
-        for (int p = 0; p < T::NP; ++p)
-          tma_load_4d(Vs + s * T::KV_BYTES + p * BN * SWZ, &tm_v, v_full + s, p * T::PW, g, kv0, b);
+        for (int p = 0; p < T::NPV; ++p)
+          tma_load_4d(Vs + s * T::V_BYTES + p * BN * SWZ, &tm_v, v_full + s, p * T::PW, g, kv0, b);
       }
     }
   } else {
@@ -243,9 +256,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     const int cq = 2 * (lane % 4);        // and columns cq, cq + 1 of each 8
     const uint8_t* Qw = Qs + 64 * wg * SWZ;
 
-    float oacc[T::TW / 2];
+    float oacc[T::TWV / 2];
 #pragma unroll
-    for (int i = 0; i < T::TW / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < T::TWV / 2; ++i) oacc[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
     if (n_tiles > 0) mbar_wait(q_full, 0);
@@ -256,7 +269,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
                         (window && kv0 + BN - 1 <= qlo - window);
       mbar_wait(k_full + s, par);
       if (!skip) {
-        const uint8_t* Kt = Ks + s * T::KV_BYTES;
+        const uint8_t* Kt = Ks + s * T::K_BYTES;
         float sacc[BN / 2];
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) sacc[i] = 0.f;
@@ -310,7 +323,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
           else l0 += pv;
         }
 #pragma unroll
-        for (int i = 0; i < T::TW / 2; ++i) oacc[i] *= (i & 2) ? a1 : a0;
+        for (int i = 0; i < T::TWV / 2; ++i) oacc[i] *= (i & 2) ? a1 : a0;
         uint32_t pa[BN / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
@@ -318,12 +331,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
           for (int t = 0; t < 4; ++t) pa[kk][t] = pack_bf16(sacc[8 * kk + 2 * t], sacc[8 * kk + 2 * t + 1]);
 
         mbar_wait(v_full + s, par);
-        const uint8_t* Vt = Vs + s * T::KV_BYTES;
+        const uint8_t* Vt = Vs + s * T::V_BYTES;
         fence_regs(oacc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs<T::TW>(oacc, pa[kk], gmma_desc<SWZ>(Vt + kk * 16 * SWZ, BN * SWZ), 1);
+          wgmma_rs<T::TWV>(oacc, pa[kk], gmma_desc<SWZ>(Vt + kk * 16 * SWZ, BN * SWZ), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(oacc);
@@ -339,10 +352,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     // rows with no valid key take the empty-row value (see the header)
     const bool e0 = l0 == 0.f && qlo + r0 < Sq, e1 = l1 == 0.f && qlo + r0 + 8 < Sq;
     if (__any_sync(0xffffffffu, e0 || e1)) {
-      float ev[T::TW / 8][2];
-      empty_row_sums<HD>(vg, b, g, Skv, KV, lane, cq, ev);
+      float ev[T::TWV / 8][2];
+      empty_row_sums<HDV>(vg, b, g, Skv, KV, lane, cq, ev);
 #pragma unroll
-      for (int jn = 0; jn < HD / 8; ++jn) {
+      for (int jn = 0; jn < HDV / 8; ++jn) {
         if (e0) oacc[4 * jn] = ev[jn][0], oacc[4 * jn + 1] = ev[jn][1];
         if (e1) oacc[4 * jn + 2] = ev[jn][0], oacc[4 * jn + 3] = ev[jn][1];
       }
@@ -355,9 +368,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
       const int qp = qlo + r0 + 8 * half;
       const float l = half ? l1 : l0;
       if (qp >= Sq) continue;
-      __nv_bfloat16* row = o + ((size_t)(b * Sq + qp) * H + h) * HD;
+      __nv_bfloat16* row = o + ((size_t)(b * Sq + qp) * H + h) * HDV;
 #pragma unroll
-      for (int jn = 0; jn < HD / 8; ++jn) {
+      for (int jn = 0; jn < HDV / 8; ++jn) {
         const float x0 = oacc[4 * jn + 2 * half], x1 = oacc[4 * jn + 2 * half + 1];
         *reinterpret_cast<__nv_bfloat162*>(row + 8 * jn + cq) =
             l > 0.f ? __floats2bfloat162_rn(x0 / l, x1 / l) : __floats2bfloat162_rn(0.f, 0.f);
@@ -366,17 +379,17 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   }
 }
 
-template <int HD>
+template <int HD, int HDV = HD>
 cudaError_t launch_sm90(const void* q, const void* k, const void* v, const int* kv_len, void* o,
                         cudaStream_t stream, int B, int Sq, int Skv, int H, int KV, int causal,
                         int window, float scale) {
-  using T = Tile<HD>;
+  using T = Tile<HD, HDV>;
   CUtensorMap mq, mk, mv;
   cudaError_t err = bshd_map(&mq, q, B, Sq, H, HD, kBM, T::SWZ);
   if (err == cudaSuccess) err = bshd_map(&mk, k, B, Skv, KV, HD, T::BN, T::SWZ);
-  if (err == cudaSuccess) err = bshd_map(&mv, v, B, Skv, KV, HD, T::BN, T::SWZ);
+  if (err == cudaSuccess) err = bshd_map(&mv, v, B, Skv, KV, HDV, T::BN, T::SWZ);
   if (err != cudaSuccess) return err;
-  auto kern = flash_fwd_sm90<HD>;
+  auto kern = flash_fwd_sm90<HD, HDV>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
   const int n_q = (Sq + kBM - 1) / kBM;
@@ -593,10 +606,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_le
 
 }  // namespace simt
 
-cudaError_t by_head_dim(int dtype, int hd, const void* q, const void* k, const void* v,
-                        const int* kv_len, void* o, cudaStream_t s, int B, int Sq, int Skv, int H,
-                        int KV, int causal, int window, float scale) {
+cudaError_t by_head_dim(int dtype, int hd, int hd_v, const void* q, const void* k,
+                        const void* v, const int* kv_len, void* o, cudaStream_t s, int B, int Sq,
+                        int Skv, int H, int KV, int causal, int window, float scale) {
 #define FLASH_ARGS q, k, v, kv_len, o, s, B, Sq, Skv, H, KV, causal, window, scale
+  if (hd_v != hd) {  // MLA's expanded prefill: Q and K at 192, V and O at 128
+    if (dtype == kBF16 && hd == 192 && hd_v == 128) return launch_sm90<192, 128>(FLASH_ARGS);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == kBF16) {
     switch (hd) {
       case 32: return launch_sm90<32>(FLASH_ARGS);
@@ -622,10 +639,10 @@ cudaError_t by_head_dim(int dtype, int hd, const void* q, const void* k, const v
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* kv_len, void* o, void* stream, int B, int Sq,
-                                      int Skv, int H, int KV, int hd, int causal, int window,
-                                      int dtype, float scale) {
+                                      int Skv, int H, int KV, int hd, int hd_v, int causal,
+                                      int window, int dtype, float scale) {
   if (B < 1 || Sq < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  return (int)by_head_dim(dtype, hd, q, k, v, static_cast<const int*>(kv_len), o,
+  return (int)by_head_dim(dtype, hd, hd_v, q, k, v, static_cast<const int*>(kv_len), o,
                           static_cast<cudaStream_t>(stream), B, Sq, Skv, H, KV, causal, window,
                           scale);
 }

@@ -5,7 +5,8 @@ not take); a CPU tensor goes to the plain PyTorch version in ``ref``. There is
 no fall-back from one to the other. Signatures follow ``repro/kernels/ops.py``
 without its ``impl`` and block-size knobs: the device picks the path, and the
 tile sizes are the kernels' own. ``flash_attention`` adds ``kv_lengths``, the
-valid key prefix of each row. ``unembed`` replaces no TPU kernel (the
+valid key prefix of each row, and ``scale``, the scores' factor, with a V
+that may be narrower than Q and K. ``unembed`` replaces no TPU kernel (the
 reference's unembed is a plain fp32 product): a head stored in fp32 takes
 that product on either device, and a bf16 head on the card the kernel.
 
@@ -45,12 +46,14 @@ SCAN_CHUNK = 64      # the scan kernel's chunk (csrc/ssd_scan.cu)
 
 @kernel_region("fusedkernel_flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_lengths: Optional[torch.Tensor] = None):
+                    kv_lengths: Optional[torch.Tensor] = None, scale: Optional[float] = None):
+    """``scale`` multiplies the scores (1/sqrt(q's width) when None); v may
+    be narrower than q and k (MLA: 192 and 128), and the output takes v's."""
     if _on_cuda(q):
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    kv_lengths=kv_lengths)
+                                    kv_lengths=kv_lengths, scale=scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   kv_lengths=kv_lengths)
+                                   kv_lengths=kv_lengths, scale=scale)
 
 
 @kernel_region("fusedkernel_decode_attention")

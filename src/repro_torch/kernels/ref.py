@@ -8,11 +8,12 @@ ssm.py``), the form the scan kernel computes, which the training forward
 differentiates and a traced prefill records; and :func:`unembed_ref`, the
 plain version of the unembed kernel, which replaces no TPU kernel.
 
-Two additions to ``flash_attention_ref``: it takes ``kv_lengths`` (B,), the
-valid key prefix of each row, which is how the port's prefill passes the
-reference model's right-padding mask (``kv_valid``) to the attention; and a
-query row with no valid key gets the reference model's value there, not a
-softmax over -1e30. The reference's serving prefill
+Three additions to ``flash_attention_ref``: a ``scale`` of the scores and a
+V narrower than Q and K (multi-head latent attention, ``models/mla.py``); it
+takes ``kv_lengths`` (B,), the valid key prefix of each row, which is how
+the port's prefill passes the reference model's right-padding mask
+(``kv_valid``) to the attention; and a query row with no valid key gets the
+reference model's value there, not a softmax over -1e30. The reference's serving prefill
 (``repro/models/attention.py:72-171``, blocks of ``min(512, Skv)`` keys)
 takes exp(-1e30 - (-1e30)) = 1 for every key of such a row, the zero
 padding of the last block included, so the row is
@@ -41,19 +42,21 @@ def unembed_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def flash_attention_ref(
     q: torch.Tensor,            # (B, Sq, H, hd)
     k: torch.Tensor,            # (B, Skv, KV, hd)
-    v: torch.Tensor,            # (B, Skv, KV, hd)
+    v: torch.Tensor,            # (B, Skv, KV, hd_v)
     *,
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
     kv_lengths: Optional[torch.Tensor] = None,   # (B,) int32 valid key prefix
+    scale: Optional[float] = None,               # 1/sqrt(hd) when None
 ) -> torch.Tensor:
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
+    hd_v = v.shape[-1]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
-                     k.to(torch.float32)) / math.sqrt(hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32), k.to(torch.float32))
+    s = s / math.sqrt(hd) if scale is None else s * scale
     qpos = q_offset + torch.arange(Sq, device=q.device)
     kpos = torch.arange(Skv, device=q.device)
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -69,7 +72,7 @@ def flash_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bkgqh", p, v.to(torch.float32))
     o = torch.where(~mask.any(dim=-1)[..., None], empty_row_value(v)[:, :, None, None], o)
-    return torch.movedim(o, 3, 1).reshape(B, Sq, H, hd).to(q.dtype)
+    return torch.movedim(o, 3, 1).reshape(B, Sq, H, hd_v).to(q.dtype)
 
 
 def empty_row_value(v: torch.Tensor) -> torch.Tensor:

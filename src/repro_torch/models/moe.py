@@ -4,6 +4,17 @@ shared expert ``:249-251``).
 
 * **Router** (``_router``): fp32 softmax over the experts, top-k, combine
   weights renormalised over the k, and the Switch load-balance loss.
+* **Sigmoid router** (``_router_sigmoid``, ``router_scoring="sigmoid"``):
+  DeepSeek-V3's and Kimi-K2's ``noaux_tc`` with one expert group: fp32
+  sigmoid scores, the top-k of score + a correction bias (the leaf
+  ``bias``), combine weights the unbiased scores normalised over the k and
+  times ``routed_scale``.
+* **The experts held** (``experts_held`` from ``expert_offset``): a device
+  holds a block of the router's ``n_experts`` (the model-configs guide's
+  chip share of expert parallelism). It routes over all of them, maps the
+  pairs to other experts to the overflow bucket as the expert-parallel
+  branch does (``_held_ids``), and computes its experts' part at the
+  capacity of all ``n_experts``; on one device there is no exchange.
 * **Capacity dispatch** (``_dispatch``): the (token, j) pairs are sorted by
   expert id (a *stable* sort, as ``jnp.argsort``, so an expert's slots fill
   in flat (token, j) order and the same pairs overflow as in the reference)
@@ -74,15 +85,21 @@ class MoeKnobs:
 
 
 def moe_spec(cfg: ModelConfig) -> Dict[str, object]:
+    """The router over all ``n_experts`` (and, with sigmoid scoring, its
+    correction bias), the weights of the experts held (``held_experts``) and
+    any shared expert."""
     E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    Eh = cfg.held_experts
     s: Dict[str, object] = {
         "router": ParamSpec((d, E), ("embed", "experts"), scale=0.02),
         # expert weights: expert-sharded over `model` and d-sharded over the
         # data axes (FSDP), gathered or partial-summed in the EP branch
-        "w_gate": ParamSpec((E, d, f), ("experts", "embed_fsdp", "expert_ffn")),
-        "w_up": ParamSpec((E, d, f), ("experts", "embed_fsdp", "expert_ffn")),
-        "w_down": ParamSpec((E, f, d), ("experts", "expert_ffn", "embed_fsdp")),
+        "w_gate": ParamSpec((Eh, d, f), ("experts", "embed_fsdp", "expert_ffn")),
+        "w_up": ParamSpec((Eh, d, f), ("experts", "embed_fsdp", "expert_ffn")),
+        "w_down": ParamSpec((Eh, f, d), ("experts", "expert_ffn", "embed_fsdp")),
     }
+    if cfg.router_scoring == "sigmoid":
+        s["bias"] = ParamSpec((E,), ("experts",), init="zeros")
     if cfg.n_shared_experts:
         s["shared"] = mlp_spec(d, cfg.moe_d_ff * cfg.n_shared_experts, "silu")
     return s
@@ -100,6 +117,24 @@ def _router(logits32: torch.Tensor, k: int
     frac_tokens = _counts(top_ids.reshape(-1), E).to(torch.float32) / T
     mean_prob = probs.mean(dim=0)
     aux = E * torch.sum(frac_tokens / k * mean_prob)
+    return top_ids, combine, aux
+
+
+def _router_sigmoid(logits32: torch.Tensor, bias: torch.Tensor, k: int, scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's ``noaux_tc`` routing (one expert group): scores s =
+    sigmoid(logits), the top-k of s + bias chosen, their unbiased s
+    normalised over the k and times ``scale``. Returns (expert_ids (T, k),
+    combine_w (T, k), aux_loss): the aux term is the Switch loss of
+    :func:`_router` on the sigmoid scores, which serving does not read (the
+    published model trains its bias instead of a loss)."""
+    T, E = logits32.shape
+    s = torch.sigmoid(logits32)
+    top_ids = torch.topk(s + bias.to(torch.float32), k, dim=-1).indices
+    top_s = torch.gather(s, 1, top_ids)
+    combine = top_s / torch.clamp(top_s.sum(dim=-1, keepdim=True), min=1e-20) * scale
+    frac_tokens = _counts(top_ids.reshape(-1), E).to(torch.float32) / T
+    aux = E * torch.sum(frac_tokens / k * s.mean(dim=0))
     return top_ids, combine, aux
 
 
@@ -155,14 +190,27 @@ def _expert_mats(xe, w_gate, w_up, w_down):
 def _combine(ye: torch.Tensor, weight: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """(E, cap, d) expert rows -> (T, d): each row weighted in the model
     dtype, then a token's rows summed in expert order (its slots ascending;
-    a dropped pair reads a zero row last)."""
+    a dropped pair reads a zero row last).
+
+    The E * cap slots hold at most E * cap // (j + 1) tokens with a (j+1)-th
+    kept pair. Where that is fewer than T (a device that holds a block of
+    the experts, whose pairs to the others are dropped here), step j reads
+    only that many tokens, those with the most kept pairs first: the rows it
+    leaves out are zero rows, so the sums are the same bits."""
     E, cap, d = ye.shape
+    T, k = slot.shape
     rows = (ye * weight[..., None].to(ye.dtype)).reshape(E * cap, d)
     rows = torch.cat([rows, rows.new_zeros(1, d)])
     slot = torch.sort(slot, dim=1).values
-    out = torch.zeros((slot.shape[0], d), dtype=ye.dtype, device=ye.device)
-    for j in range(slot.shape[1]):
-        out = out + rows[slot[:, j]]
+    out = torch.zeros((T, d), dtype=ye.dtype, device=ye.device)
+    if E * cap // k >= T:
+        for j in range(k):
+            out = out + rows[slot[:, j]]
+        return out
+    by_kept = torch.argsort((slot < E * cap).sum(dim=1), descending=True, stable=True)
+    for j in range(k):
+        idx = by_kept[:min(T, E * cap // (j + 1))]
+        out.index_copy_(0, idx, out.index_select(0, idx) + rows.index_select(0, slot[idx, j]))
     return out
 
 
@@ -193,8 +241,13 @@ def _expert_ffn_local(
 def _local_ids(ids: torch.Tensor, mesh, E_local: int) -> torch.Tensor:
     """Global expert ids -> this ``model`` rank's, the others' experts
     mapped to the overflow bucket ``E_local``."""
-    lo = mesh.axis_index("model") * E_local
-    return torch.where((ids >= lo) & (ids < lo + E_local), ids - lo, E_local)
+    return _held_ids(ids, mesh.axis_index("model") * E_local, E_local)
+
+
+def _held_ids(ids: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """Global expert ids -> those of the block of ``n`` experts from ``lo``,
+    the others mapped to the overflow bucket ``n``."""
+    return torch.where((ids >= lo) & (ids < lo + n), ids - lo, n)
 
 
 def shard_fn(mesh, fsdp, cap, xf_l, ids_l, cw_l, wg_l, wu_l, wd_l):
@@ -273,30 +326,49 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, mes
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN on x (B, S, d). Returns (out (B, S, d), aux_loss fp32 scalar).
     ``capacity_factor`` 0 means no drop (the capacity of E experts' worth).
+    A device that holds a block of the experts (``experts_held`` from
+    ``expert_offset``) routes over all ``n_experts`` and computes its own
+    experts' part of the output (and the shared expert, if any): the
+    model-configs guide's chip share, with no exchange.
     ``mesh``, ``cap_slack`` and ``fsdp_mode`` ("gather" | "partial") drive
     the expert-parallel branch, as the reference's. The reference's
     ``batch_spec`` is left out: nothing sets it."""
     B, S, d = x.shape
     T = B * S
-    k, E = cfg.n_experts_per_token, cfg.n_experts
+    k, E, Eh = cfg.n_experts_per_token, cfg.n_experts, cfg.held_experts
     xf = x.reshape(T, d)
     with scopes.span("moe.router"):
         logits32 = xf.to(torch.float32) @ p["router"].to(torch.float32)
-        top_ids, combine, aux = _router(logits32, k)
+        if cfg.router_scoring == "sigmoid":
+            top_ids, combine, aux = _router_sigmoid(logits32, p["bias"], k, cfg.routed_scale)
+        else:
+            top_ids, combine, aux = _router(logits32, k)
     cf = capacity_factor if capacity_factor else float(E)
     ep = (mesh is not None and "model" in mesh.axis_names and mesh.shape["model"] > 1
           and E % mesh.shape["model"] == 0)
     if ep:
+        if Eh != E:
+            raise ValueError(f"{cfg.name}: the expert-parallel branch cuts its blocks from "
+                             f"all {E} experts; this device holds {Eh}")
         out = _expert_parallel(xf, top_ids, combine, p, cfg, mesh, cf, cap_slack,
                                fsdp_mode).reshape(B, S, d)
     else:
+        # the capacity of the router's E experts, as the expert-parallel
+        # branch takes the global E for its shard
         cap = _capacity(T, k, E, cf)
-        out, slot = _expert_ffn_local(xf, top_ids, combine, p["w_gate"], p["w_up"],
+        ids = top_ids if Eh == E else _held_ids(top_ids, cfg.expert_offset, Eh)
+        out, slot = _expert_ffn_local(xf, ids, combine, p["w_gate"], p["w_up"],
                                       p["w_down"], cap)
         out = out.reshape(B, S, d)
-        # the pairs routed, and (counted when read) those past capacity
-        scopes.count("moe.pairs", T * k)
-        scopes.count_equal("moe.dropped", slot, E * cap)
+        # the pairs routed to held experts, and (counted when read) those of
+        # them past capacity; a pair to another device's expert is neither
+        if Eh == E:
+            scopes.count("moe.pairs", T * k)
+            scopes.count_equal("moe.dropped", slot, E * cap)
+        elif scopes.recording():
+            held = ids < Eh
+            scopes.count_equal("moe.pairs", held, True)
+            scopes.count_equal("moe.dropped", torch.where(held, slot, -1), Eh * cap)
     if cfg.n_shared_experts and "shared" in p:
         out = out + mlp_apply(p["shared"], x, "silu")
     return out, aux.to(torch.float32)

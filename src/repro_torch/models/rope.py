@@ -1,5 +1,5 @@
 """Rotary position embeddings: standard RoPE (half-split rotation, fp32
-angles) and Qwen2-VL's M-RoPE.
+angles), Qwen2-VL's M-RoPE, and YaRN's frequencies (DeepSeek-V3 / Kimi-K2).
 
 M-RoPE splits the head-dim frequency bands into three sections driven by
 (temporal, height, width) position streams; for pure text the three streams
@@ -8,6 +8,7 @@ coincide and M-RoPE reduces exactly to RoPE (arXiv:2409.12191).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Iterable, Tuple
 
 import torch
@@ -16,6 +17,36 @@ import torch
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     half = head_dim // 2
     return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude factor 0.1 mscale ln(scale) + 1 (1 at scale <= 1):
+    DeepSeek-V3's ``yarn_get_mscale``."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_range(dim: int, theta: float, original_max_pos: int, beta_fast: float,
+               beta_slow: float) -> Tuple[int, int]:
+    """The band indices (low, high) between which YaRN ramps from the
+    original frequencies to the interpolated ones: the bands that turn
+    ``beta_fast`` and ``beta_slow`` times over the original context
+    (``yarn_find_correction_range``), clipped to [0, dim - 1]."""
+    def band(rotations):
+        return dim * math.log(original_max_pos / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+    return max(math.floor(band(beta_fast)), 0), min(math.ceil(band(beta_slow)), dim - 1)
+
+
+def yarn_inv_freq(dim: int, theta: float, factor: float, original_max_pos: int,
+                  beta_fast: float, beta_slow: float, device=None) -> torch.Tensor:
+    """(dim // 2,) YaRN frequencies (DeepSeek-V3's
+    ``DeepseekV3YarnRotaryEmbedding``): band i keeps theta^(-2i/dim) below
+    ``low``, takes it divided by ``factor`` above ``high``, and a linear
+    blend between them."""
+    low, high = yarn_range(dim, theta, original_max_pos, beta_fast, beta_slow)
+    extra = rope_freqs(dim, theta, device=device)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+                       / max(high - low, 0.001), 0.0, 1.0)
+    return extra / factor * ramp + extra * (1.0 - ramp)
 
 
 def mrope_section(head_dim: int) -> Tuple[int, int, int]:

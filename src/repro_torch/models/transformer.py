@@ -9,6 +9,8 @@ a ``(kinds, n_blocks)`` pair (``repro/models/transformer.py:58-82``):
 * dense, windowed: [ (('local',), L) ]
 * gemma3 5:1:      [ (('local',)*5 + ('full',), L//6), (('local',)*(L%6), 1) ]
 * MoE:             [ (('moe',), L) ]
+* MoE, leading dense layers (Kimi-K2's ``first_k_dense_replace``):
+                   [ (('full',), n_dense_layers), (('moe',), L - n_dense_layers) ]
 * mamba2:          [ (('ssm',), L) ]
 * zamba2 hybrid:   [ (('shared_attn',) + ('ssm',)*k, L//k), (('ssm',)*(L%k), 1) ]
 
@@ -47,6 +49,16 @@ attends to ``min(lengths, window)`` slots of a ring
 (:func:`attention.ring_cache_valid`), and replaces each SSM entry with the
 new state. The window also goes to the prefill kernel. ``local`` layers
 take their own rope base (``rope_theta_local``).
+
+Multi-head latent attention (``kv_lora_rank`` > 0, DeepSeek-V3 / Kimi-K2):
+every attention layer is ``models/mla.py``'s, chosen by the configuration
+in :func:`forward` and :func:`decode_step`, with its rope at the rope
+columns' width (YaRN's frequencies where set). Its cache entry is the
+1-tuple ``(latent,)`` of a (B, Sc, kv_lora_rank + qk_rope_head_dim) tensor
+(:func:`cache_spec`); the prefill returns it at the prompt's length,
+:func:`decode_cache` places it as it places K/V, and a decode step writes
+its token's entry at slot ``pos[b]``. MLA has no int8 cache, no window and
+no training forward.
 
 Gemma3's pieces: a local/global mix (``local_global_ratio``: blocks of that
 many ``local`` layers and one ``full`` one, the rest ``local``),
@@ -93,6 +105,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.common.pytree import tree_map
 from repro_torch.common.scopes import scope
 from repro_torch.models import attention as attn
+from repro_torch.models import mla
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ACTS, ParamSpec, embed_spec, mlp_apply,
                                        mlp_spec, rms_norm, unembed)
@@ -114,6 +127,11 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (one of {FAMILIES})")
     if cfg.act not in ACTS:
         raise ValueError(f"{cfg.name}: unknown act {cfg.act!r} (one of {tuple(ACTS)})")
+    if cfg.kv_lora_rank:
+        if cfg.family not in ("dense", "moe") or cfg.attn_window or cfg.local_global_ratio:
+            raise ValueError(f"{cfg.name}: MLA is built for full-attention dense and MoE "
+                             f"decoders")
+        mla.check_supported(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +156,9 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
             if L % len(blk):
                 segs.append(Segment(("local",) * (L % len(blk)), 1))
             return segs
+        if cfg.family == "moe" and cfg.n_dense_layers:     # leading dense layers
+            return [Segment(("full",), cfg.n_dense_layers),
+                    Segment(("moe",), L - cfg.n_dense_layers)]
         kind = "moe" if cfg.family == "moe" else ("local" if cfg.attn_window else "full")
         return [Segment((kind,), L)]
     if cfg.family == "ssm":
@@ -166,7 +187,10 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 def _angles(cfg: ModelConfig, kinds: List[str], positions: torch.Tensor):
     """kind -> its rope angle table (None for SSM layers); ``positions`` (B,
-    S), or (3, B, S) with M-RoPE."""
+    S), or (3, B, S) with M-RoPE. MLA's table is of its rope columns."""
+    if cfg.kv_lora_rank:
+        table = mla.rope_angles(cfg, positions)
+        return lambda kind: table
     table = angles_by_base(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_theta_local,
                            kinds, use_mrope=cfg.use_mrope)
     return lambda kind: (None if kind == "ssm" else
@@ -182,10 +206,16 @@ def _norm(cfg: ModelConfig) -> ParamSpec:
     return ParamSpec((cfg.d_model,), ("embed",), init="zeros")
 
 
+def _attn_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """A layer's attention: MLA's latent projections where ``kv_lora_rank``
+    is set, else GQA's."""
+    return mla.mla_spec(cfg) if cfg.kv_lora_rank else attn.attn_spec(cfg)
+
+
 def shared_block_spec(cfg: ModelConfig, act: str = "silu") -> Dict[str, Any]:
     """Attention + MLP: Zamba2's shared block (gated SiLU, whatever the
     config's act), and a dense layer (the config's act)."""
-    return {"ln1": _norm(cfg), "attn": attn.attn_spec(cfg), "ln2": _norm(cfg),
+    return {"ln1": _norm(cfg), "attn": _attn_spec(cfg), "ln2": _norm(cfg),
             "mlp": mlp_spec(cfg.d_model, cfg.d_ff, act)}
 
 
@@ -193,7 +223,7 @@ def _layer_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     if kind in ("full", "local"):
         return shared_block_spec(cfg, cfg.act)
     if kind == "moe":
-        return {"ln1": _norm(cfg), "attn": attn.attn_spec(cfg), "ln2": _norm(cfg),
+        return {"ln1": _norm(cfg), "attn": _attn_spec(cfg), "ln2": _norm(cfg),
                 "moe": moe_spec(cfg)}
     if kind == "ssm":
         return {"ln1": _norm(cfg), "ssm": ssm_mod.ssm_spec(cfg)}
@@ -273,11 +303,16 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch.Ten
             continue
         p = shared if kind == "shared_attn" else lp
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(p["attn"], h, cfg, angles(kind))
-        o = attn.prefill_attention(q, k, v, window=_window(cfg, kind),
-                                   kv_lengths=kv_lengths)
-        x, _ = _apply_ffn(p, x + attn.out_project(p["attn"], o), cfg, moe)
-        cache.append((k, v))
+        if cfg.kv_lora_rank:            # MLA: the cache entry is the latent
+            y, entry = mla.mla_prefill(p["attn"], h, cfg, angles(kind), kv_lengths)
+            cache.append((entry,))
+        else:
+            q, k, v = attn.qkv_project(p["attn"], h, cfg, angles(kind))
+            o = attn.prefill_attention(q, k, v, window=_window(cfg, kind),
+                                       kv_lengths=kv_lengths)
+            y = attn.out_project(p["attn"], o)
+            cache.append((k, v))
+        x, _ = _apply_ffn(p, x + y, cfg, moe)
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (unembed(hidden, params["embed"], params.get("head"))
               if logits_mode == "all" else None)
@@ -315,6 +350,12 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int, kv_quant: bool = Fa
                 "conv": ParamSpec((batch, cfg.ssm_conv_width - 1, d_conv),
                                   ("batch", None, "ssm_inner"))})
             continue
+        if cfg.kv_lora_rank:            # MLA: one latent entry a token
+            if kv_quant:
+                raise ValueError(f"{cfg.name}: no int8 cache for MLA's latent entries")
+            cache.append((ParamSpec((batch, cache_len, mla.cache_width(cfg)),
+                                    ("batch", "cache_seq", None)),))
+            continue
         shape = (batch, _slots(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim)
         if kv_quant:
             kv = ParamSpec(shape, KV_AXES, init="int8")
@@ -348,6 +389,16 @@ def decode_cache(cfg: ModelConfig, prefill_cache: Cache, cache_len: int) -> Cach
     for kind, entry in zip(layer_kinds(cfg), prefill_cache):
         if isinstance(entry, dict):
             out.append(entry)
+            continue
+        if len(entry) == 1:             # MLA's latent (B, S, R + r)
+            lat = entry[0]
+            B, S, W = lat.shape
+            if S > cache_len:
+                raise ValueError(f"a decode cache of {cache_len} positions is shorter than "
+                                 f"the prefill ({S})")
+            lc = lat.new_zeros((B, cache_len, W))
+            lc[:, :S] = lat
+            out.append((lc,))
             continue
         k, v = entry
         B, S, KV, hd = k.shape
@@ -415,9 +466,14 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch
             x = x + y
             continue
         p = shared if kind == "shared_attn" else lp
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if cfg.kv_lora_rank:            # MLA: the absorbed form over the latent cache
+            y = mla.mla_decode(p["attn"], h, cfg, angles(kind), cache[i][0], bidx, slot,
+                               lengths)
+            x, _ = _apply_ffn(p, x + y, cfg, moe)
+            continue
         kc, vc = cache[i][:2]
         at, n = ring if _window(cfg, kind) and kc.shape[1] == W else (slot, lengths)
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv_project(p["attn"], h, cfg, angles(kind))
         if len(cache[i]) == 4:                  # int8 K/V and their scales
             ks, vs = cache[i][2:]
@@ -459,6 +515,9 @@ def check_trainable(cfg: ModelConfig) -> None:
     if cfg.family == "encdec":
         raise ValueError(f"{cfg.name}: an encoder-decoder trains on batches with "
                          f"enc_embeds (Model.loss); the token pipeline has none")
+    if cfg.kv_lora_rank:
+        raise ValueError(f"{cfg.name}: MLA is served only (prefill and decode); it has "
+                         f"no training forward")
 
 
 def train_forward(params: Dict[str, Any], cfg: ModelConfig,

@@ -37,7 +37,7 @@ def port_config(jcfg):
     ``reduced()`` one, which the port has no method for)."""
     from repro_torch.common.config import ModelConfig
 
-    return ModelConfig(**{f.name: getattr(jcfg, f.name)
+    return ModelConfig(**{f.name: getattr(jcfg, f.name, f.default)
                           for f in dataclasses.fields(ModelConfig)})
 
 

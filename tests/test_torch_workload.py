@@ -18,7 +18,7 @@ from repro.configs import ASSIGNED_ARCHS as JASSIGNED  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.launch import workload as jworkload  # noqa: E402
 from repro.models.model_zoo import build_model as jbuild_model  # noqa: E402
-from repro_torch.common.config import INPUT_SHAPES, get_input_shape  # noqa: E402
+from repro_torch.common.config import INPUT_SHAPES, ModelConfig, get_input_shape  # noqa: E402
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, list_archs  # noqa: E402
 from repro_torch.launch import workload  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
@@ -28,6 +28,13 @@ SHAPES = [s.name for s in INPUT_SHAPES]
 
 def _fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _theirs(want, keys):
+    """The reference config's values of ``keys``: a field the port has and
+    the reference lacks is held to its default."""
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    return {k: getattr(want, k, defaults[k]) for k in keys}
 
 
 def test_shapes_and_archs_are_the_references():
@@ -51,10 +58,10 @@ def test_cfg_for_shape_and_padding(arch):
         got = workload.cfg_for_shape(get_config(arch), get_input_shape(name))
         want = jworkload.cfg_for_shape(jget_config(arch), jworkload.InputShape(
             *dataclasses.astuple(get_input_shape(name))))
-        assert _fields(got) == {k: getattr(want, k) for k in _fields(got)}
+        assert _fields(got) == _theirs(want, _fields(got))
         padded = workload.tpu_shardable_cfg(got, 16)
         jpadded = jworkload.tpu_shardable_cfg(want, 16)
-        assert _fields(padded) == {k: getattr(jpadded, k) for k in _fields(padded)}
+        assert _fields(padded) == _theirs(jpadded, _fields(padded))
     tcfg, jtcfg = (workload.train_cfg_for(get_config(arch)),
                    jworkload.train_cfg_for(jget_config(arch)))
     assert (tcfg.optimizer, tcfg.schedule, tcfg.stable_steps, tcfg.remat) == \
