@@ -54,7 +54,13 @@ script exits non-zero without its result line:
    untied or tied as the model is, at B=8 and 4 and at the collect cells'
    512 rows, against the fp32 product within 1e-5 of the logits' scale, a
    second call bit-identical, its error against fp64 printed beside the fp32
-   product's, timed beside cuBLAS's bf16 GEMM with an fp32 output;
+   product's, timed beside cuBLAS's bf16 GEMM with an fp32 output; then the
+   RMSNorm and RoPE kernels (``norm_rope_kernel_checks``) at the admit
+   cells' widest batch (8 x 2,048 rows: the residual norms at d = 3,584,
+   4,096 and 7,168, the q/k norms over 64 and 4 heads of 128, Kimi-K2's
+   latents, RoPE on Qwen2.5's, Qwen3-MoE's and Kimi-K2's q and k, the MLA's
+   read in place), within one bf16 step of the plain versions and at least
+   99% bit-identical, timed against their byte bound;
    run: the benchmark runner (``launch/run.py --only kernels,theory``) in
    this process, its CSV rows printed: the reference kernel bench's four
    rows (``launch/bench_kernels.py``: flash B=2, S=512, H=8 on 2, hd=64;
@@ -120,7 +126,10 @@ script exits non-zero without its result line:
      against the plain version), no decode kernel (the absorbed decode),
      the unembed; a prefill and a decode step timed.
    Every model also runs the unembed kernel, once for each generation's
-   first token and once a decode step.
+   first token and once a decode step, and the RMSNorm and RoPE kernels in
+   every prefill and decode step (``norm_rope_launches``: the norms and
+   rotations of a pass; none in Whisper, whose norms are LayerNorms and
+   whose positions are learned, nor on a training path under autograd).
    The launch counts are set to 0 before each model's run and read after it;
    each kernel the model's path runs must have risen, and equal
    ``expected_launches`` when no row met EOS. The head kernel is then
@@ -199,7 +208,7 @@ script exits non-zero without its result line:
    full width and depth, fp32, the scan in ``ssd_chunked`` at chunk 256:
    losses and gradients finite, the first batch's loss lower after the
    steps, no kernel on the train path; the prefill (ssd_scan 24 and 38
-   launches, flash 0 and 6) within 1e-3 of the training forward's logits on
+   launches, flash 0 and 6, and a pass's norms and rotations) within 1e-3 of the training forward's logits on
    the trained weights; steps against ``train_bounds`` (w_in, w_out and the
    scan counted), peak memory, one step profiled;
    int8 kv: Llama-3-8B at full width and depth, bf16 (wq, wk x 0.1), B=8,
@@ -1040,10 +1049,12 @@ def mla_phase(torch, ref, counters):
               "prod_head": 0}
     if lens.min() == max_new:
         expect["unembed"] = r * (max_new + 1)
+        expect.update(norm_rope_launches(cfg, r * (max_new + 1)))
     for k, n in expect.items():
         check(launches[k] == n, f"kimi-k2-instruct: {k} launched {launches[k]} times, "
               f"expected {n}")
-    check(launches["unembed"] > 0, "kimi-k2-instruct: the unembed was not launched")
+    for k in ("unembed", "rms_norm", "rope"):
+        check(launches[k] > 0, f"kimi-k2-instruct: {k} was not launched")
 
     (q, k, v), kw = fl.args, fl.kwargs
     scale = mla.softmax_scale(cfg)
@@ -1190,6 +1201,105 @@ def unembed_kernel_checks(torch, ref, kernels):
     return rows
 
 
+# the norms and rotations of the admit cells' widest batch (8 x 2,048 rows):
+# (label, rows' leading shape, width, stored width) and (label, heads, hd,
+# stored hd, first rotated column, rope theta); None heads is kv[..., None, R:]
+NORM_SHAPES = (("qwen2.5-7b ln", (), 3584, 3584), ("qwen3-moe ln", (), 4096, 4096),
+               ("kimi-k2 ln", (), 7168, 7168), ("qwen3-moe q_norm", (64,), 128, 128),
+               ("qwen3-moe k_norm", (4,), 128, 128), ("kimi-k2 q latent", (), 1536, 1536),
+               ("kimi-k2 kv latent", (), 512, 576))
+ROPE_SHAPES = (("qwen2.5-7b q", 28, 128, 128, 0, 1e6), ("qwen2.5-7b k", 4, 128, 128, 0, 1e6),
+               ("qwen3-moe q", 64, 128, 128, 0, 1e6), ("kimi-k2 q_pe", 64, 64, 192, 128, 5e4),
+               ("kimi-k2 k_pe", None, 64, 576, 512, 5e4))
+
+
+def norm_rope_kernel_checks(torch, ref, kernels, batch=8, seq=2048):
+    """Phase 3, the RMSNorm and RoPE kernels (``rms_norm_sm90``,
+    ``rope_sm90``) at the admit cells' widest batch, bf16, views read in
+    place as the models pass them (``NORM_SHAPES``, ``ROPE_SHAPES``): every
+    element within one bf16 step of the plain version on the card and at
+    least 99% bit-identical (``tests/test_torch_norm_rope.py`` holds the
+    same at more widths, and against fp64), a second call bit-identical,
+    one launch a call. Timed beside the plain version and, for the norm,
+    ``F.rms_norm`` with the gain 1 + scale (the library yardstick, never
+    used by the port; no single PyTorch call rotates); bound: x read once
+    and the output written once (with the scale, or the angles once a
+    token), at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.rope import rope_angles
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    bf16 = torch.bfloat16
+
+    def held(name, shape, got, again, plain, n0):
+        steps = (got.view(torch.int16).int() - plain.view(torch.int16).int()).abs()
+        same = float((steps == 0).double().mean())
+        print(f"{name} {shape}: bit-identical {100 * same:.4f}%, max steps {int(steps.max())}")
+        check(kernels[name].launches - n0 == 2, f"{name} {shape}: {kernels[name].launches - n0} "
+              f"launches for two calls")
+        check(torch.equal(got, again), f"{name} {shape}: two calls differ")
+        check(int(steps.max()) <= 1 and same >= 0.99,
+              f"{name} {shape}: {same:.4f} bit-identical, max {int(steps.max())} steps")
+        return max_err(torch, got, plain)
+
+    rows = []
+    for label, lead, d, stored in NORM_SHAPES:
+        x = (torch.randn(batch * seq, *lead, stored, generator=g, device=dev) * 2).to(bf16)
+        x = x[..., :d]
+        scale = (torch.randn(d, generator=g, device=dev) * 0.1).to(bf16)
+        shape = f"{batch}x{seq} rows x {lead[0]} heads of {d}" if lead else \
+            f"{batch}x{seq} rows of {d}" + (f" (stride {stored})" if stored != d else "")
+        shape += f" ({label})"
+        n0 = kernels["rms_norm"].launches
+        got = kernels["rms_norm"](x, scale, 1e-6)
+        again = kernels["rms_norm"](x, scale, 1e-6)
+        err = held("rms_norm", shape, got, again, ref.rms_norm_ref(x, scale, 1e-6), n0)
+        gain = 1.0 + scale
+        call = lambda: kernels["rms_norm"](x, scale, 1e-6)
+        lib = lambda: F.rms_norm(x, (d,), gain, 1e-6)
+        nbytes = 2 * (2 * x.numel() + d)
+        b_ms, b_by = bound(nbytes, 0, BF16_FLOPS)
+        rows.append({"name": "rms_norm", "shape": shape, "max_abs_err": err,
+                     "ms": time_ms(call), "device_ms": device_time_ms(call),
+                     "plain_ms": time_ms(lambda: ref.rms_norm_ref(x, scale, 1e-6)),
+                     "library_ms": time_ms(lib), "library_device_ms": device_time_ms(lib),
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": 0})
+        del x, got, again
+    for label, H, hd, stored, lo, theta in ROPE_SHAPES:
+        if H is None:
+            x = torch.randn(batch, seq, stored, generator=g, device=dev).to(bf16)[..., None, lo:]
+        else:
+            x = torch.randn(batch, seq, H, stored, generator=g, device=dev).to(bf16)[..., lo:]
+        pos = (torch.arange(seq, device=dev) + 250)[None].expand(batch, seq)
+        angles = rope_angles(pos, hd, theta)
+        shape = f"B={batch} S={seq} H={x.shape[2]} hd={hd}" + (
+            f" of {stored}" if stored != hd else "") + f" ({label})"
+        n0 = kernels["rope"].launches
+        got = kernels["rope"](x, angles)
+        again = kernels["rope"](x, angles)
+        err = held("rope", shape, got, again, ref.rope_ref(x, angles), n0)
+        call = lambda: kernels["rope"](x, angles)
+        nbytes = 2 * 2 * x.numel() + 4 * angles.numel()
+        b_ms, b_by = bound(nbytes, 0, BF16_FLOPS)
+        rows.append({"name": "rope", "shape": shape, "max_abs_err": err,
+                     "ms": time_ms(call), "device_ms": device_time_ms(call),
+                     "plain_ms": time_ms(lambda: ref.rope_ref(x, angles)),
+                     "library_ms": None, "library_device_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": 0})
+        del x, got, again
+    torch.cuda.empty_cache()
+    report_rows(rows)
+    print(f"rms_norm, rope: {len(rows)} kernel rows held")
+    return rows
+
+
+# the kernels that replace no TPU kernel (the reference's bench has no row of
+# them)
+UNPORTED = ("unembed", "rms_norm", "rope")
+
+
 def run_phase(torch, counters):
     """Phase 3b: the benchmark runner (``launch/run.py``) in this process on
     its ``kernels`` and ``theory`` entries, its CSV rows printed. The
@@ -1216,11 +1326,13 @@ def run_phase(torch, counters):
           f"run: theory booleans {theory}, the reference's are all True")
     rows = bench_kernels.measure()
     # the reference's kernel bench times the four TPU kernels; the unembed,
-    # which replaces none, is not among them and must not launch here
-    ported = sorted(k for k in counters if k != "unembed")
+    # the norm and the rotation, which replace none, are not among them and
+    # must not launch here
+    ported = sorted(k for k in counters if k not in UNPORTED)
     check(sorted(r["name"] for r in rows) == ported,
           f"run: measure gave the kernels {[r['name'] for r in rows]}")
-    check(launches["unembed"] == 0, "run: unembed launched off its path")
+    for k in UNPORTED:
+        check(launches[k] == 0, f"run: {k} launched off its path")
     for r in rows:
         check(r["row"] in values, f"run: no {r['row']} row")
         check(launches[r["name"]] == 23,
@@ -1231,12 +1343,12 @@ def run_phase(torch, counters):
 # each served model: generations per prompt, the kernels its path runs,
 # whether one prefill and one decode step are profiled, and the depth it is
 # cut to (None: its full depth)
-DENSE = ("flash_attention", "decode_attention", "prod_head", "unembed")
+DENSE = ("flash_attention", "decode_attention", "prod_head", "unembed", "rms_norm", "rope")
 SERVE_PHASES = (
     ("llama3-8b", 4, DENSE, True, None),
     ("zamba2-1.2b", 4, ("ssd_scan", "flash_attention", "decode_attention", "prod_head",
-                        "unembed"), True, None),
-    ("mamba2-130m", 2, ("ssd_scan", "prod_head", "unembed"), True, None),
+                        "unembed", "rms_norm", "rope"), True, None),
+    ("mamba2-130m", 2, ("ssd_scan", "prod_head", "unembed", "rms_norm"), True, None),
     ("qwen2.5-7b", 4, DENSE, True, None),
     ("granite-20b", 2, DENSE, False, None),
     ("minicpm-2b", 2, DENSE, False, None),
@@ -1252,17 +1364,37 @@ SERVE_PHASES = (
 )
 
 
-def expected_launches(kinds, r: int, max_new: int):
+def norm_rope_launches(cfg, passes: int):
+    """The norm's and the rotation's launches in ``passes`` prefills and
+    decode steps: a pass norms each SSM layer twice (ln1 and the gated
+    norm), each attention layer's ln1 and ln2 (and q and k with
+    ``qk_norm``, the q and kv latents in MLA) and the final hidden state
+    once, and rotates each attention layer's q and k."""
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    n_ssm = sum(k == "ssm" for k in kinds)
+    n_attn = len(kinds) - n_ssm
+    per_attn = 4 if cfg.qk_norm or cfg.kv_lora_rank else 2
+    return {"rms_norm": passes * (2 * n_ssm + per_attn * n_attn + 1),
+            "rope": passes * 2 * n_attn}
+
+
+def expected_launches(cfg, r: int, max_new: int):
     """Launches of each kernel when every row of every generation runs to
     max_new (with random weights EOS is rare): one scan per SSM layer and
     one flash call per attention layer (a ``moe`` layer is one: attention,
     then the experts) in each prefill, one decode call per attention layer
-    in each of the max_new steps, two head calls, and one unembed (bf16) for
-    each generation's first token and one in each of its max_new steps."""
+    in each of the max_new steps, two head calls, one unembed (bf16) for
+    each generation's first token and one in each of its max_new steps, and
+    the norms and rotations of its prefill and max_new steps."""
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)
     n_attn = sum(k != "ssm" for k in kinds)
     return {"ssd_scan": r * sum(k == "ssm" for k in kinds), "flash_attention": r * n_attn,
             "decode_attention": r * max_new * n_attn, "prod_head": 2,
-            "unembed": r * (max_new + 1)}
+            "unembed": r * (max_new + 1), **norm_rope_launches(cfg, r * (max_new + 1))}
 
 
 def model_bounds(cfg, kinds, n_params: int, B: int, Sp: int, cache_len: int,
@@ -1428,7 +1560,7 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
         check(launches[k] > 0, f"{name}: kernel {k} was not launched on the main path")
     for k in set(counters) - set(kernels_on_path):
         check(launches[k] == 0, f"{name}: kernel {k} launched off its path")
-    expect = expected_launches(kinds, r, max_new)
+    expect = expected_launches(cfg, r, max_new)
     if lens.min() == max_new:
         for k in kernels_on_path:
             check(launches[k] == expect[k], f"{name}: {k} launched {launches[k]} times, "
@@ -2280,7 +2412,8 @@ def ssm_train_phase(torch, counters):
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
         expect = {"ssd_scan": sum(k == "ssm" for k in kinds),
-                  "flash_attention": sum(k != "ssm" for k in kinds)}
+                  "flash_attention": sum(k != "ssm" for k in kinds),
+                  **norm_rope_launches(cfg, 1)}
         print(f"ssm train {name}: prefill (ssd_scan, flash kernels) against the training "
               f"forward (ssd_chunked, blocked attention) on the trained weights: logits "
               f"max|err| {err:.4g} at max|logit| {scale:.4g} ({err / scale:.3g} of it; "
@@ -2310,7 +2443,8 @@ def int8_kv_phase(torch, counters):
     80GB HBM3 at 700 W). Checks: at every step the median
     |logit gap| below 0.1 max|logit| + 0.05 (the reference's gate); the int8
     cache's bytes below 0.65x the plain one's (``:46``); decode_attention
-    launched once per layer and step on both caches, no other kernel. The
+    launched once per layer and step on both caches, the unembed, norm and
+    rotation once a step's worth (``norm_rope_launches``), no other kernel. The
     two caches' step times (CUDA events, eager), the dequantization's share
     of the int8 step and one profiled step of each are printed. Returns the
     launches of the 256 steps."""
@@ -2369,7 +2503,10 @@ def int8_kv_phase(torch, counters):
     check(launches["decode_attention"] == 2 * T * cfg.n_layers,
           f"int8 kv: decode_attention launched {launches['decode_attention']} times")
     check(launches["unembed"] == 2 * T, f"int8 kv: unembed launched {launches['unembed']} times")
-    check(all(v == 0 for k, v in launches.items() if k not in ("decode_attention", "unembed")),
+    for k, n in norm_rope_launches(cfg, 2 * T).items():
+        check(launches[k] == n, f"int8 kv: {k} launched {launches[k]} times, expected {n}")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("decode_attention", "unembed", "rms_norm", "rope")),
           "int8 kv: a kernel launched off the decode path")
 
     with torch.no_grad():
@@ -2585,7 +2722,7 @@ def online_phase(torch, ref, counters):
     checks = bench_online.validate(rep)
     print(f"online (a) bench_online, seed 0: {wall:.1f} s wall; launches {json.dumps(launches_a)}")
     print(f"online (a): checks {json.dumps(checks)}; reference {json.dumps(ONLINE_REF)}")
-    for k in ("flash_attention", "decode_attention", "prod_head"):
+    for k in ("flash_attention", "decode_attention", "prod_head", "rms_norm", "rope"):
         check(launches_a[k] > 0, f"online (a): kernel {k} was not launched on the main path")
     check(launches_a["ssd_scan"] == 0, "online (a): ssd_scan launched off its path")
     # one prefill per generation (1 + r=4), 4 attention layers each; the
@@ -2630,6 +2767,8 @@ def online_phase(torch, ref, counters):
           f"online (b): flash / decode launches {launches_b}")
     check(launches_b["prod_head"] == 2, "online (b): prod_head launches")
     check(launches_b["unembed"] == steps + 1, f"online (b): unembed launches {launches_b}")
+    for k, n in norm_rope_launches(cfg, steps + 1).items():
+        check(launches_b[k] == n, f"online (b): {k} launched {launches_b[k]} times, expected {n}")
     mae = float((pred.cpu() - torch.as_tensor(rem)).abs().mean())
     q = quants.cpu().numpy()
     print(f"online (b): train MAE of the online head {mae:.3f} tokens (remaining 0-"
@@ -2806,6 +2945,9 @@ def long_phase(torch, ref, counters):
     if lens.min() == max_new:
         check(launches["decode_attention"] == max_new * n_attn, f"long: decode launches {launches}")
         check(launches["unembed"] == max_new + 1, f"long: unembed launches {launches}")
+        for k, n in norm_rope_launches(cfg, max_new + 1).items():
+            check(launches[k] == n, f"long: {k} launched {launches[k]} times, expected {n}")
+    check(launches["rms_norm"] > 0 and launches["rope"] > 0, f"long: norm launches {launches}")
     n_tok = int(lens.sum())
     print(f"long: Zamba2-1.2B B={B} prompts {list(LONG_LENS)} padded to {Sp}, window {W}, "
           f"max_new={max_new}: {gen_s:.2f} s, {n_tok} generated tokens, "
@@ -3029,6 +3171,10 @@ def gemma3_long_phase(torch, ref, counters):
         check(launches["decode_attention"] == max_new * len(kinds),
               f"gemma3 long: decode launches {launches}")
         check(launches["unembed"] == max_new + 1, f"gemma3 long: unembed launches {launches}")
+        for k, n in norm_rope_launches(cfg, max_new + 1).items():
+            check(launches[k] == n, f"gemma3 long: {k} launched {launches[k]} times, expected {n}")
+    check(launches["rms_norm"] > 0 and launches["rope"] > 0,
+          f"gemma3 long: norm launches {launches}")
     n_tok = int(lens.sum())
     print(f"gemma3 long: B={B} prompts {list(G3_LONG_LENS)} padded to {Sp}, window {W} on "
           f"{kinds.count('local')} of {len(kinds)} layers, max_new={max_new}: {gen_s:.2f} s, "
@@ -3240,7 +3386,7 @@ def whisper_phase(torch, ref, counters):
     check((quants[:, 1] >= quants[:, 0] - 1e-4).all(), f"{name}: q0.9 >= q0.5")
     expect = {"flash_attention": r * (cfg.n_encoder_layers + 2 * L),
               "decode_attention": 2 * L * steps, "prod_head": 2, "ssd_scan": 0,
-              "unembed": r + steps}
+              "unembed": r + steps, "rms_norm": 0, "rope": 0}
     print(f"serve {name}: launches on the main path {json.dumps(launches)}; expected "
           f"{json.dumps(expect)} ({steps} decode steps over r={r})")
     check(launches == expect, f"{name}: launches {launches}, expected {expect}")
@@ -3359,7 +3505,8 @@ def vlm_embeds_phase(torch, ref, counters):
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     expect = {"flash_attention": len(kinds), "decode_attention": steps * len(kinds),
-              "prod_head": 0, "ssd_scan": 0, "unembed": steps + 1}
+              "prod_head": 0, "ssd_scan": 0, "unembed": steps + 1,
+              **norm_rope_launches(cfg, steps + 1)}
     print(f"{name} embeds: B={B} S={S} ({VLM_PATCHES} patches on a 16 x 16 grid, then "
           f"text), {steps} decode steps: {wall:.2f} s, {B * steps / wall:.1f} tokens/s "
           f"(prefill included); launches {json.dumps(launches)}, expected {json.dumps(expect)}")
@@ -3413,7 +3560,7 @@ def e2e_phase(torch, counters):
     launches = {k: c.launches for k, c in counters.items()}
     print(f"e2e: {wall:.1f} s wall; launches {json.dumps(launches)}")
     check(out["lengths"].shape == (64, 8), f"e2e: lengths {out['lengths'].shape}")
-    for k in ("flash_attention", "decode_attention", "prod_head"):
+    for k in ("flash_attention", "decode_attention", "prod_head", "rms_norm", "rope"):
         check(launches[k] > 0, f"e2e: {k} was not launched")
     check(launches["ssd_scan"] == 0, "e2e: ssd_scan launched off its path")
     check(launches["flash_attention"] == 8 * 4, f"e2e: flash launches {launches}")
@@ -3879,7 +4026,7 @@ def mesh_serve(torch, counters, dist, rank: int, dev):
     pred = fit_and_predict(lens, phi, cfg.predictor_bins, seed=1, qs=(0.5, 0.9), device=dev)
     torch.cuda.synchronize()
     res["launches"] = {k: cnt.launches for k, cnt in counters.items()}
-    res["expected"] = expected_launches(layer_kinds(cfg), r, max_new)
+    res["expected"] = expected_launches(cfg, r, max_new)
     res.update(gen_s=gen_s, n_tok=int(lens.sum()), lens_max=int(lens.max()),
                lens_min=int(lens.min()),
                finite=bool(np.isfinite(phi).all() and np.isfinite(pred["median"]).all()
@@ -3995,7 +4142,8 @@ def mesh_serve_report(res) -> None:
           "mesh serve: lengths or predictions out of range")
     for x in res:
         got = x["launches"]
-        for kname in ("flash_attention", "decode_attention", "prod_head", "unembed"):
+        for kname in ("flash_attention", "decode_attention", "prod_head", "unembed",
+                      "rms_norm", "rope"):
             check(got[kname] > 0, f"mesh serve: {kname} was not launched")
             if x["lens_min"] == 64:
                 check(got[kname] == x["expected"][kname],
@@ -4123,12 +4271,14 @@ def kernel_wrappers():
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.prod_head import prod_head_cuda
+    from repro_torch.kernels.rms_norm import rms_norm_cuda
+    from repro_torch.kernels.rope import rope_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     from repro_torch.kernels.unembed import unembed_cuda
 
     return {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
             "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda,
-            "unembed": unembed_cuda}
+            "unembed": unembed_cuda, "rms_norm": rms_norm_cuda, "rope": rope_cuda}
 
 
 def main() -> int:
@@ -4183,6 +4333,7 @@ def main() -> int:
     rows += mla_kernel_checks(torch, ref, kernels)
     rows += encdec_vlm_kernel_checks(torch, ref, kernels)
     rows += unembed_kernel_checks(torch, ref, kernels)
+    rows += norm_rope_kernel_checks(torch, ref, kernels)
     mark("kernels")
     by_phase = {}
     by_phase["run"], run_rows = run_phase(torch, kernels)
@@ -4265,7 +4416,12 @@ def main() -> int:
                             "src/repro/kernels/ssd_scan.py:61"),
                # no TPU kernel: the reference's unembed is a plain fp32 product
                "unembed": ("src/repro_torch/kernels/csrc/unembed.cu",
-                           "src/repro/models/layers.py:135-138")}
+                           "src/repro/models/layers.py:135-138"),
+               # no TPU kernel: the reference writes the norm and RoPE in jnp
+               "rms_norm": ("src/repro_torch/kernels/csrc/rms_norm.cu",
+                            "src/repro/models/layers.py:83-88"),
+               "rope": ("src/repro_torch/kernels/csrc/rope.cu",
+                        "src/repro/models/rope.py:49-56")}
     report = []
     for r in rows:
         if any(k["name"] == r["name"] for k in report):

@@ -39,7 +39,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("prod_head", "flash_attention", "decode_attention", "ssd_scan", "unembed")
+KERNEL_SOURCES = ("prod_head", "flash_attention", "decode_attention", "ssd_scan", "unembed",
+                  "rms_norm", "rope")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -125,6 +126,7 @@ def check(err: int, what: str) -> None:
 
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}    # as in csrc/common.cuh
+TORCH_DTYPE_CODES = {getattr(torch, name): code for name, code in DTYPE_CODES.items()}
 _DTYPE_NAMES: Dict[object, str] = {}             # torch dtype -> "float32", ...
 
 

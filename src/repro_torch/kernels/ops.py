@@ -9,6 +9,10 @@ valid key prefix of each row, and ``scale``, the scores' factor, with a V
 that may be narrower than Q and K. ``unembed`` replaces no TPU kernel (the
 reference's unembed is a plain fp32 product): a head stored in fp32 takes
 that product on either device, and a bf16 head on the card the kernel.
+``rms_norm`` and ``rope`` replace no TPU kernel either: each is the model's
+fp32 elementwise chain (``ref.rms_norm_ref``, ``ref.rope_ref``) as one pass
+on the card. Neither kernel has a backward, so under autograd (grad enabled
+and an input that requires grad) both devices take the plain version.
 
 Each entry point runs under ``fusedkernel_<name>`` (``common/scopes.py``),
 the mark by which the dry-run's analyzer (``launch/graph_analysis.py``)
@@ -29,6 +33,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.prod_head import prod_head_cuda
+from repro_torch.kernels.rms_norm import rms_norm_cuda
+from repro_torch.kernels.rope import rope_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.unembed import unembed_cuda
 
@@ -98,3 +104,23 @@ def unembed(x, w):
         return ref.unembed_ref(x, w)
     logits = unembed_cuda(x.reshape(-1, x.shape[-1]).contiguous(), w)
     return logits.reshape(*x.shape[:-1], w.shape[-1])
+
+
+@kernel_region("fusedkernel_rms_norm")
+def rms_norm(x, scale, eps: float):
+    """RMSNorm over x's last dimension with the gain (1 + scale), rounded once
+    to x's dtype: the plain version on the CPU and under autograd, the
+    kernel on the card (it raises on what it does not take)."""
+    if not _on_cuda(x) or (torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad)):
+        return ref.rms_norm_ref(x, scale, eps)
+    return rms_norm_cuda(x, scale, eps)
+
+
+@kernel_region("fusedkernel_rope")
+def rope(x, angles):
+    """x (B, S, H, hd) rotated by angles (B, S, hd / 2): the plain version on
+    the CPU and under autograd, the kernel on the card (it raises on what it
+    does not take)."""
+    if not _on_cuda(x) or (torch.is_grad_enabled() and (x.requires_grad or angles.requires_grad)):
+        return ref.rope_ref(x, angles)
+    return rope_cuda(x, angles)

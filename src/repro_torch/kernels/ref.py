@@ -2,11 +2,14 @@
 
 Line for line with ``repro/kernels/ref.py``. The CPU tests hold these against
 the JAX oracles; ``chip_smoke.py`` holds each CUDA kernel against them on the
-card; ``ops`` runs them for tensors that lie on the CPU. Two additions:
+card; ``ops`` runs them for tensors that lie on the CPU. Four additions:
 :func:`ssd_chunked`, the reference model's chunked scan (``repro/models/
 ssm.py``), the form the scan kernel computes, which the training forward
-differentiates and a traced prefill records; and :func:`unembed_ref`, the
-plain version of the unembed kernel, which replaces no TPU kernel.
+differentiates and a traced prefill records; :func:`unembed_ref`, the plain
+version of the unembed kernel; and :func:`rms_norm_ref` and
+:func:`rope_ref`, the model's RMSNorm and RoPE as the reference model writes
+them, the plain versions of the ``rms_norm`` and ``rope`` kernels. The last
+three kernels replace no TPU kernel.
 
 Three additions to ``flash_attention_ref``: a ``scale`` of the scores and a
 V narrower than Q and K (multi-head latent attention, ``models/mla.py``); it
@@ -31,6 +34,27 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with a zero-initialised scale applied as (1 + scale), fp32
+    inside (``repro/models/layers.py:83-88``): the plain version of the
+    ``rms_norm`` kernel."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def rope_ref(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """RoPE's half-split rotation in fp32 (``repro/models/rope.py:49-56``): x (B,
+    S, H, head_dim), angles (B, S, head_dim//2). The plain version of the
+    ``rope`` kernel."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def unembed_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -70,11 +70,10 @@ def init_tree(spec: Any, generator: torch.Generator, dtype: torch.dtype,
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm with a zero-initialised scale applied as (1 + scale)."""
-    x32 = x.to(torch.float32)
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
-    return out.to(x.dtype)
+    """RMSNorm with a zero-initialised scale applied as (1 + scale), fp32
+    inside and rounded once to x's dtype (``kernels/ops.py::rms_norm``: the
+    plain version on the CPU and under autograd, one kernel on the card)."""
+    return ops.rms_norm(x, scale, eps)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -13,6 +13,8 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
+
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     half = head_dim // 2
@@ -88,12 +90,11 @@ def angles_by_base(positions: torch.Tensor, head_dim: int, theta: float,
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, head_dim); angles: (B, S, head_dim//2)."""
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    """x: (B, S, H, head_dim); angles: (B, S, head_dim//2). The half-split
+    rotation in fp32, rounded once to x's dtype (``kernels/ops.py::rope``:
+    the plain version on the CPU and under autograd, one kernel on the
+    card)."""
+    return ops.rope(x, angles)
 
 
 def positions_from_tokens(batch: int, seq: int, device=None) -> torch.Tensor:

@@ -14,11 +14,13 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import prod_head as ph  # noqa: E402
+from repro_torch.kernels import rms_norm as rn  # noqa: E402
+from repro_torch.kernels import rope as rp  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import unembed as ue  # noqa: E402
 
 WRAPPERS = {"prod_head": ph, "flash_attention": fa, "decode_attention": da, "ssd_scan": ss,
-            "unembed": ue}
+            "unembed": ue, "rms_norm": rn, "rope": rp}
 
 
 def _c_params(name):
@@ -48,6 +50,8 @@ def test_dtype_codes_match_the_sources():
     codes = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert _build.DTYPE_CODES == {"float32": int(codes["kF32"]),
                                   "bfloat16": int(codes["kBF16"])}
+    assert _build.TORCH_DTYPE_CODES == {torch.float32: int(codes["kF32"]),
+                                        torch.bfloat16: int(codes["kBF16"])}
 
 
 @pytest.mark.parametrize("name", _build.KERNEL_SOURCES)
