@@ -4,242 +4,59 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA GPU (Hopper: the
-kernels are built for sm_90a). Phases, in order; any failure raises and the
-script exits non-zero without its result line:
+kernels are built for sm_90a). Its phases, in order, each with the function
+and the tables that hold its shapes; any failure raises and the script exits
+non-zero without its result line:
 
 1. device: the card's name, and its name and power limit from ``nvidia-smi``;
-2. build: ``nvcc`` builds every kernel of ``src/repro_torch/kernels/csrc``, in
+2. build: ``nvcc`` builds every kernel of ``_build.KERNEL_SOURCES`` in
    parallel, timed;
-3. kernels: each CUDA kernel against its plain PyTorch version at the serving
-   shapes (and the fp32 flash and decode at the online phase's tiny-lm
-   shapes; flash, decode and the head also at the dense configs' shapes:
-   GQA groups 7 and 48, MiniCPM-2B's 36-head MHA, d = 2304-7168, and the
-   head at Whisper's and Qwen2-VL's d = 1280 and 1536; the head at
-   the bins ablation's grids, d=64, B=400, K = 16 and 128, linear and log
-   edges), with the
-   stated tolerance, timed beside the plain version, one
-   PyTorch library call as a yardstick where one computes the same function
-   (timed only, never used by the port) and the least time the card could
-   take (``bound_ms``), with the achieved rate and its share of the bound.
-   ``ms`` and ``library_ms`` are eager calls from Python, as the serve path
-   makes them (``time_ms``: the host's launch work counts where it is slower
-   than the device); ``device_ms`` and ``library_device_ms`` leave the host
-   out (the calls replayed from a CUDA graph, ``device_time_ms``). The head
-   at B=8, d=4096 and the decode attention (with SDPA on the cache as the
-   kernel takes it as its yardstick) are also timed with the L2 cache cold
-   (``cold_ms``, both ways). The decode attention's split plan is printed,
-   and its device time under other splits (``split_sweep``: the library's
-   plan against the others, each output held within one bf16 step of the
-   plain version's); the fp32 scan with no decay is held against an fp64
-   recurrence, beside the plain version's error there. Then Gemma3-27B's
-   head width, hd=168 (``gemma3_kernel_checks``): flash at B=8, S=512 and
-   at S=1,100 with its 1,024-key window, decode at B=8, Sc=576 (with the
-   split sweep) and on 1,024-slot rings, and fp32 flash and decode at a
-   small shape, each with a second call bit-identical and SDPA's time and
-   backend beside it; then the MoE configs' heads (``moe_kernel_checks``):
-   Qwen3-MoE's 64 query heads on 4 KV heads (hd=64, G=16) and Kimi-K2's 64
-   on 8 at hd=112, flash at B=8, S=512 and decode at B=8, Sc=576 (Kimi's
-   with the split sweep), and fp32 flash and decode at hd=112; then
-   Whisper's and Qwen2-VL's shapes (``encdec_vlm_kernel_checks``): flash
-   over Whisper's encoder (non-causal, 1,500 frames), its decoder's causal
-   self-attention (S=224) and its cross-attention (non-causal, Sq=224 against
-   1,500 keys), Qwen2-VL's prefill (12 heads on 2, hd=128, G=6); decode on
-   Whisper's self cache, its static 1,500-slot cross cache (every key valid)
-   and at Qwen2-VL's G=6 (with the split sweep); then Kimi-K2-Instruct's
-   latent attention at prefill (``mla_kernel_checks``): flash with q and k
-   of 192 columns, v and o of 128 and YaRN's scale 0.13086, at the admit
-   cell's widest batch (B=8, S=2,048, ragged) and at S=512, SDPA beside it
-   with the same scale and V; then the unembed kernel
-   (``unembed_kernel_checks``) at every served bf16 model's d and vocabulary,
-   untied or tied as the model is, at B=8 and 4 and at the collect cells'
-   512 rows, against the fp32 product within 1e-5 of the logits' scale, a
-   second call bit-identical, its error against fp64 printed beside the fp32
-   product's, timed beside cuBLAS's bf16 GEMM with an fp32 output; then the
-   RMSNorm and RoPE kernels (``norm_rope_kernel_checks``) at the admit
-   cells' widest batch (8 x 2,048 rows: the residual norms at d = 3,584,
-   4,096 and 7,168, the q/k norms over 64 and 4 heads of 128, Kimi-K2's
-   latents, RoPE on Qwen2.5's, Qwen3-MoE's and Kimi-K2's q and k, the MLA's
-   read in place), within one bf16 step of the plain versions and at least
-   99% bit-identical, timed against their byte bound;
-   run: the benchmark runner (``launch/run.py --only kernels,theory``) in
-   this process, its CSV rows printed: the reference kernel bench's four
-   rows (``launch/bench_kernels.py``: flash B=2, S=512, H=8 on 2, hd=64;
-   decode B=8 on a full 4,096-key cache; the scan at P = N = 32; the head at
-   B=128, d=1,024; all fp32), each kernel launched 23 times, and the four
-   theory booleans True, as the reference's; then ``bench_kernels.measure``
-   holds each kernel against its plain version at those shapes (second call
-   bit-identical) and times it beside its bound, its plain version and the
-   library call;
-   ep: ``models/moe.py``'s expert-parallel branch in 4 gloo processes that
-   share the card (``chip_smoke.py --phase ep``; ``ep_phase``): one
-   Qwen3-MoE-235B-A22B MoE layer at full width, bf16, T = 4 x 128 tokens,
-   on (2, 2) in both FSDP modes and on (1, 4): at no drop within 2e-2 of
-   max|out| of the single-device path, at the default capacity a second
-   call bit-identical; per rank the pairs dropped, ms per call and the
-   collectives' share (through host memory: no measure of NVLink); no
-   kernel on this path;
-   dryrun (a child process started beside the cluster child of phase 7 and
-   read after it, ``chip_smoke.py --phase dryrun``): ``launch/dryrun.py`` for
-   Llama-3-8B x decode_32k and Qwen3-MoE x prefill_32k on the 16x16 pod
-   mesh of a fake 256-rank group, each ``ok``, with the roofline table, and
-   the card's memory equal to ``launch/mesh.py``'s HBM_BYTES;
-4. serve, once per model, each at full width and depth with seeded random
-   weights, through ``RealEngine.repeated_sampling`` on 8 ragged prompts
-   (256-512 tokens right-padded to 512, max_new=64), ProD-D targets,
-   ``train_predictor`` on φ and median / q0.9 predictions through the fused
-   head:
-   - Llama-3-8B (32 layers, d=4096, bf16), r=4: flash, decode and head;
-     and the mesh check (``mesh_checks``): on a (1, 1) mesh the argument
-     bytes of its params and a B=8, 576-slot cache equal what init and
-     init_cache allocated, within 1e-3; its prefill traced on fake tensors
-     between the weight products' FLOPs and those plus every attention
-     pair's;
-   - Zamba2-1.2B (38 Mamba2 layers + the shared attention block 6 times,
-     d=2048, bf16), r=4: all four kernels;
-   - Mamba2-130M (24 layers, d=768, bf16), r=2: scan and head;
-   - Qwen2.5-7B (28 layers, G=7), r=4; Granite-20B (52 layers, 48 query
-     heads on one KV head), r=2; MiniCPM-2B (40 layers, MHA, tied 122,753-
-     token vocabulary), r=2; Yi-34B (60 layers, G=7, d=7168; 68.8 GB of
-     weights), r=2; Gemma3-27B (62 layers in 10 blocks of 5 local + 1
-     full and 2 local, window 1,024, qk_norm, the tanh-GELU gated MLP,
-     hd=168, d=5376, a tied 262,144-token vocabulary; 28.29 B parameters in
-     its leaves against param_count()'s 21.12 B), r=2: flash, decode and
-     head;
-   - the MoE family at full width, its depth cut to what one 80 GB card
-     holds: Qwen3-MoE-235B-A22B (12 of 94 layers, 128 experts top-8,
-     qk_norm; 61.34 GB of bf16 weights) and Kimi-K2's GQA stand-in (1 of
-     61 layers, 384 experts top-8 and a shared expert, hd=112; 38.85 GB;
-     not the published model, which ``mla_phase`` runs), r=2: flash,
-     decode and head. Per MoE layer at the prefill the capacity, the
-     (token, j) pairs dropped and the experts with no token are printed,
-     at a decode step the distinct experts routed; the step is timed
-     against two bounds, every expert read (what capacity dispatch reads)
-     and only the experts the step routed to;
-   - Qwen2-VL-2B (28 layers, d=1536, 12 heads on 2, M-RoPE, a tied
-     151,936-token vocabulary) on text tokens, where its three M-RoPE
-     streams are equal, r=2: flash, decode and head;
-   - Kimi-K2-Instruct as published (``mla_phase``: latent attention, the
-     sigmoid router, a shared expert, the dense first layer), cut to that
-     layer and one MoE layer with one rank's 12 of 384 experts, at the
-     admit cell's B=8, S=2,048, r=1, 16 new tokens: flash once a layer a
-     prefill at q/k 192 and v 128 with YaRN's scale (its first call held
-     against the plain version), no decode kernel (the absorbed decode),
-     the unembed; a prefill and a decode step timed.
-   Every model also runs the unembed kernel, once for each generation's
-   first token and once a decode step, and the RMSNorm and RoPE kernels in
-   every prefill and decode step (``norm_rope_launches``: the norms and
-   rotations of a pass; none in Whisper, whose norms are LayerNorms and
-   whose positions are learned, nor on a training path under autograd).
-   The launch counts are set to 0 before each model's run and read after it;
-   each kernel the model's path runs must have risen, and equal
-   ``expected_launches`` when no row met EOS. The head kernel is then
-   held against its plain version on the trained weights and the served phi
-   (and, after Llama, its disagreement is printed against the logit scale);
-   one prefill and one decode step are timed against ``model_bounds`` (and
-   profiled, but for Granite-20B and MiniCPM-2B), and the peak memory is
-   printed; each model is freed before the next;
-   long: Zamba2-1.2B past its 8,192-token window (``long_phase``: 4 prompts
-   of up to 8,960 tokens, the shared block decoding on rings, 257 padded
-   query rows with no valid key), its flash, decode and scan calls held
-   against their plain versions on the phase's own inputs (flash and decode
-   within 2e-2 of sum p|v| on V as served; two planted flash faults must
-   fail that check); gemma3 long: Gemma3-27B past its 1,024-token window
-   (``gemma3_long_phase``: 4 prompts of 900-1,100 tokens, the 52 local
-   layers decoding on rings), the flash and decode calls of one local and
-   one full layer held against their plain versions by the same criterion;
-   qwen2-vl-2b embeds: Qwen2-VL on the embeds path (``vlm_embeds_phase``:
-   256 stub patches on a 16 x 16 grid, then text, B=8, S=512, M-RoPE's
-   streams apart, 8 decode steps; flash 28 and decode 224 launches, layer
-   0's calls held against their plain versions on V as served);
-   whisper-large-v3: Whisper at full width and depth (``whisper_phase``: 32
-   encoder + 32 decoder layers, B=8 utterances of 1,500 stub frames,
-   decoder prompts of 32-224 tokens, max_new=64, r=2), driven through
-   ``Model.prefill`` and ``Model.decode_step`` (``RealEngine`` takes no
-   encoder input); per prefill 96 flash calls, per decode step 64 decode
-   calls, the head twice; prefill and step against ``encdec_bounds``,
-   profiled; encoder, self and cross flash calls and the self and cross
-   decode calls held against their plain versions on V as served;
-5. table1: the paper's Table 1, fast profile (8 Track-A settings x 7
-   methods), every head trained on the card; its claims must equal the
-   reference's, and prod_head is the one kernel launched (32 times);
-   ablations: the paper's ablations at the fast profile, each with the
-   counts set to 0 just before it and read just after (prod_head the only
-   kernel): the bins ablation (linear and log edges x K = 16, 64, 128 on
-   qwen/chat and qwen/math; 12 launches), Figure 2 (4 scenarios x repeat
-   numbers 1-16, 2 trials; 72 launches) and Tables 2-3 on qwen/math and
-   qwen/chat at one trial (112 fits; 8 launches), validated against the
-   table1 phase's rows; each validate's booleans must equal the reference's
-   (kept as constants), every MAE printed beside the reference's; then the
-   head kernel held against its plain version on the bins ablation's 12
-   trained heads;
-6. sim: ``--mode sim`` with the reference's defaults (a ProD-D head, 200
-   requests through ``SimEngine`` under four policies): every request
-   completes, prod_head is launched once per policy run, and ProD-driven SJF
-   beats both FCFS rows on mean latency; single: the serving benchmark's
-   single-replica track (``bench_serving.run``: a head trained on qwen/chat,
-   250 requests under six policies; 6 launches), its booleans equal to the
-   reference's;
-7. cluster: ``launch/bench_serving.py``'s predictor, adaptation and refine
-   tables at 8,000 bursty mixed-scenario requests, seed 0, on 4 replicas:
-   every dispatch window of every ``PredictorService`` scored on the card
-   through prod_head (d=4, K=32), the heads trained there. Counts are set to
-   0 before each table and read after it: prod_head launches must equal the
-   services' fused batches (plus the hazard grid's one call), no other
-   kernel may launch, and each table's ``validate_*`` booleans must equal
-   the reference's. One trained-head replay is profiled for the device's
-   busy share. The phase runs in a child process (``--phase cluster``)
-   beside phases 5-6, which are host-bound too, and is read after them.
-   The child stamps each table as it finishes (``bench_serving._write_stamp``,
-   under the reference's keys, to ``build/chip_smoke_stamp.json``); the
-   parent reads the stamp back through ``launch/check_regression.py``: the
-   three keys with the rows and checks the child printed, the reference's
-   meta knobs, and the stamp gated against itself with no violation;
-8. train: the trainer (``training/trainer.py``) at Llama-3-8B's published
-   widths with the depth cut to 2 layers, fp32: 5 AdamW steps (cosine
-   schedule, clipping) on B=8 x 128 tokens of ``data/pipeline.py``. Losses
-   must be finite and the 5th below the 1st; per-step wall time against
-   the step's bound and the peak memory against params + grads + AdamW
-   moments are printed; a checkpoint round trip of the trained weights
-   must be bit-identical; the training forward (blocked attention) must
-   give the prefill's logits (flash kernel) within 1e-3 of their scale. No
-   kernel may launch on the train path. One more step is profiled;
-   ssm train: the trainer on Mamba2-130M (B=8 x 512, 5 steps) and
-   Zamba2-1.2B (B=4 x 512, 4 steps; its shared block's wq and wk x 0.1) at
-   full width and depth, fp32, the scan in ``ssd_chunked`` at chunk 256:
-   losses and gradients finite, the first batch's loss lower after the
-   steps, no kernel on the train path; the prefill (ssd_scan 24 and 38
-   launches, flash 0 and 6, and a pass's norms and rotations) within 1e-3 of the training forward's logits on
-   the trained weights; steps against ``train_bounds`` (w_in, w_out and the
-   scan counted), peak memory, one step profiled;
-   int8 kv: Llama-3-8B at full width and depth, bf16 (wq, wk x 0.1), B=8,
-   576 slots: 128 teacher-forced decode steps into the plain and the int8
-   KV cache (``init_cache(kv_quant=True)``: int8 K/V and fp32 scales,
-   dequantized for the decode kernel), each step's median logit gap within
-   the reference's gate, the cache under 0.65x the plain one's bytes,
-   decode_attention launched 32 times a step on each; both steps timed and
-   profiled, the dequantizations' share printed;
-9. online: ProD-O on real generations. (a) ``launch/bench_online.py`` at
-   seed 0 (tiny-lm trained 150 steps, 48 prompts x 80 tokens with per-step
-   states, static and online heads): flash (20), decode and head (2)
-   launches, and ``online_beats_static_remaining`` must be the reference's
-   True (its average MAEs printed beside the reference's). (b) Llama-3-8B
-   at full width and depth, bf16, the serve phases' 8 prompts: one
-   ``generate(..., collect_per_step=True)`` of 64 tokens, every per-step
-   state held against the flash prefill's hidden state at the same
-   position (relative L2 within 5e-2, with wq and wk scaled by 0.1: at the
-   init scales the softmaxes are near one-hot and the model amplifies
-   rounding with depth). At the init scales: layer 0's bf16 winner flips
-   and the bf16 kernels on its captured q, k, v against fp64 and their
-   plain versions; the fp32 model at depth 1, 4, 8, 16 and 32, its
-   per-step error held within its prefill's one-ulp spread and, at depth 1,
-   within 5e-2. Then the online head trained on the 512 states at d=4096 and
-   predicting them through the head kernel;
-10. e2e: ``launch/serve_with_prod.py`` at its defaults (all nine stages,
-   tiny-lm trained on the card): flash (32), decode and head launched;
-11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+3. kernels: each kernel held against its plain version and timed beside its
+   library call and bound, as ``launch/bench_kernels.py``'s ``Case`` rows:
+   ``kernel_checks`` (``HEAD_SHAPES`` to ``SCAN_SHAPES``, then
+   ``scan_against_fp64``), ``gemma3_kernel_checks``, ``moe_kernel_checks``,
+   ``mla_kernel_checks``, ``encdec_vlm_kernel_checks``,
+   ``unembed_kernel_checks`` (``UNEMBED_SHAPES``) and
+   ``norm_rope_kernel_checks`` (``NORM_SHAPES``, ``ROPE_SHAPES``);
+   run: ``launch/run.py --only kernels,theory`` in this process, then the
+   reference's four rows (``run_phase``);
+   ep: the expert-parallel MoE layer in 4 gloo ranks sharing the card
+   (``ep_phase``, ``EP_CASES``);
+   dryrun: ``launch/dryrun.py`` in a child beside the cluster child
+   (``DRYRUN_COMBOS``);
+4. serve: each model of ``SERVE_PHASES`` through ``RealEngine`` (``serve``:
+   launches against ``expected_launches``, the head held, a prefill and a step
+   against ``model_bounds``);
+   kimi-k2-instruct: the published MLA model on the main path (``mla_phase``);
+   long: Zamba2-1.2B past its 8,192-token window (``long_phase``,
+   ``LONG_LENS``);
+   gemma3 long: Gemma3-27B past its 1,024-token window (``gemma3_long_phase``);
+   qwen2-vl-2b embeds: Qwen2-VL on image patches, then text
+   (``vlm_embeds_phase``);
+   whisper-large-v3: the encoder-decoder through ``Model.prefill`` and
+   ``decode_step`` (``whisper_phase``);
+5. table1: Table 1, fast profile, its claims equal to ``TABLE1_REF_CHECKS``
+   (``table1_phase``);
+   ablations: the bins ablation, Figure 2 and Tables 2-3 (``ablations_phase``,
+   ``ABLATION_REF_CHECKS``);
+6. sim: ``--mode sim`` at the reference's defaults (``sim_phase``); single: the
+   single-replica track (``single_phase``, ``SINGLE_REF_CHECKS``);
+7. cluster: the predictor, adaptation and refine tables in a child
+   (``cluster_phase``, ``CLUSTER_REF_CHECKS``), its stamp read back
+   (``stamp_check``);
+8. train: the trainer at Llama-3-8B's widths, 2 layers (``train_phase``); ssm
+   train: ``SSM_TRAIN`` (``ssm_train_phase``); int8 kv: the int8 KV cache
+   (``int8_kv_phase``);
+9. online: ProD-O on real generations (``online_phase``, ``ONLINE_REF``);
+10. e2e: ``launch/serve_with_prod.py`` at its defaults (``e2e_phase``);
+11. a ``{"kernels": [...]}`` line (each kernel's first row and its launches by
+   phase), then ``{"ok": true, "device": {...}}`` last.
 
-It imports nothing of JAX or of the JAX package. Without a CUDA device, or
-outside a checkout of the repository, it exits non-zero and prints no result.
+From ``run`` on, each phase sets the launch counts to 0 before it and reads
+them after (``launches_by_phase``). It imports nothing of JAX or of the JAX package. Without a CUDA device, or
+outside a checkout of the repository, it exits non-zero and prints no
+result. To run one phase alone, call ``_build.build_all()`` and then its
+function.
 """
 
 from __future__ import annotations
@@ -253,27 +70,32 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+import torch
+import torch.nn.functional as F
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 try:
-    # the kernel bench's timing and bound helpers: the kernel table's rows and
-    # launch/bench_kernels.py's are timed by one piece of code
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch import bench_kernels as bk
+    # the kernel table's rows and launch/bench_kernels.py's are one piece of code
     from repro_torch.launch.bench_kernels import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,
-                                                  bound, device_time_ms, report_rows,
-                                                  sdpa_backend, ssd_scan_flops, time_ms,
-                                                  time_ms_cold)
+                                                  bound, device_time_ms, kernel_wrappers,
+                                                  report_rows, ssd_scan_flops, time_ms)
 except ImportError as e:
     sys.exit(f"chip_smoke: run from a checkout of the repository ({e})")
 
 # the cluster phase's stamp (``build/`` is git-ignored)
 STAMP = ROOT / "build" / "chip_smoke_stamp.json"
 
+
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def ssd_fp64(torch, x, dt, a, Bm, Cm):
+def ssd_fp64(x, dt, a, Bm, Cm):
     """y of the SSD recurrence in fp64, step by step: the exact answer the
     fp32 kernel and the plain version approximate."""
     x, dt, a, Bm, Cm = (t.double() for t in (x, dt, a, Bm, Cm))
@@ -287,681 +109,239 @@ def ssd_fp64(torch, x, dt, a, Bm, Cm):
     return torch.stack(ys, dim=1)
 
 
-def max_err(torch, a, b) -> float:
+def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def kernel_checks(torch, ref, kernels):
-    """Phase 3: every kernel against its plain version at the serving shapes."""
-    import torch.nn.functional as F
+def randn(g, *shape, dtype=torch.float32):
+    """Unit normals drawn in fp32 from ``g``, on its device, then cast."""
+    return torch.randn(*shape, generator=g, device=g.device).to(dtype)
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    rows = []
 
-    # --- prod_head: hidden=512, K=64, Q=3, fp32 (phi reaches the head as
-    # fp32) at the served widths d = 4096 (Llama), 2048 (Zamba2) and 768
-    # (Mamba2) with B=8, at d=4096 with B=512, and at the Track-A width d=64
-    # with the batches of the sim phase (200) and Table 1 (350 test, 700
-    # train); tolerance:
-    # tests/test_kernels.py's prod_head tolerance (probs rtol 1e-5/atol 1e-6,
-    # quantiles rtol 1e-4/atol 1e-3) — the kernel sums in another order than
-    # cuBLAS' fp32 product. At B=8, d=4096 the head is also timed with W1
-    # cold, as a server meets it once per batch: a 64 MB buffer (more than
-    # the 50 MB L2) is written between launches, outside the timed events.
-    # The online heads at K=24: bench_online's on tiny-lm's d=128
-    # (the static head on 48 prompts, the online head on ~256 decode
-    # states) and the Llama online phase's on 512 states at d=4096. Then
-    # B=8 at the dense configs' widths: Qwen2.5-7B 3584, Granite-20B 6144,
-    # MiniCPM-2B 2304, Yi-34B 7168; and at Whisper-large-v3's 1280 and
-    # Qwen2-VL-2B's 1536.
-    hidden = 512
-    qs = torch.tensor([0.5, 0.9, 0.99], device=dev)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    for B, d, K in ((8, 4096, 64), (8, 2048, 64), (8, 768, 64), (512, 4096, 64),
-                    (200, 64, 64), (350, 64, 64), (700, 64, 64),
-                    (48, 128, 24), (256, 128, 24), (512, 4096, 24),
-                    (8, 3584, 64), (8, 6144, 64), (8, 2304, 64), (8, 7168, 64),
-                    (8, 1280, 64), (8, 1536, 64)):
-        w1 = torch.randn(d, hidden, generator=g, device=dev) / d ** 0.5
-        b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
-        w2 = torch.randn(hidden, K, generator=g, device=dev) / hidden ** 0.5
-        b2 = torch.zeros(K, device=dev)
-        edges = torch.linspace(0.0, 600.0, K + 1, device=dev)
-        phi = torch.randn(B, d, generator=g, device=dev)
-        args = (phi, w1, b1, w2, b2, edges)
-        probs, quants = kernels["prod_head"](*args, qs)
-        again = kernels["prod_head"](*args, qs)
-        p_ref, q_ref = ref.prod_head_ref(*args, qs=qs)
-        torch.cuda.synchronize()
-        check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
-              f"prod_head probs B={B} d={d}: max err {max_err(torch, probs, p_ref)}")
-        check(torch.allclose(quants, q_ref, rtol=1e-4, atol=1e-3),
-              f"prod_head quantiles B={B} d={d}: max err {max_err(torch, quants, q_ref)}")
-        check(torch.equal(probs, again[0]) and torch.equal(quants, again[1]),
-              f"prod_head B={B} d={d}: two calls differ")
-        call = lambda: kernels["prod_head"](*args, qs)
-        chain = lambda: torch.softmax(
-            torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1)
-        ms, dev_ms = time_ms(call), device_time_ms(call)
-        plain_ms = time_ms(lambda: ref.prod_head_ref(*args, qs=qs))
-        lib_ms, lib_dev_ms = time_ms(chain), device_time_ms(chain)
-        nbytes = 4 * (B * d + d * hidden + hidden + hidden * K + K + K + 1 + 3
-                      + B * K + B * 3)
-        flops = 2 * B * d * hidden + 2 * B * hidden * K
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
-        row = {"name": "prod_head", "shape": f"B={B} d={d} hidden={hidden} K={K} Q=3 fp32",
-               "max_abs_err": max(max_err(torch, probs, p_ref), max_err(torch, quants, q_ref)),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
-               "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
-        if (B, d) == (8, 4096):
-            row["cold_ms"], row["cold_device_ms"] = time_ms_cold(call, flush)
-            row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(chain, flush)
-        rows.append(row)
-    del flush
+def head_weights(g, d: int, hidden: int, K: int):
+    """w1, b1, w2, b2 of a head at its init scales, drawn from ``g``."""
+    return (randn(g, d, hidden) / d ** 0.5, randn(g, hidden) * 0.01,
+            randn(g, hidden, K) / hidden ** 0.5, torch.zeros(K, device=g.device))
 
-    # --- prod_head at the cluster's shapes: d=4 trace features (the
-    # noise-corrupted length-law latents of serving/arrivals.py), K=32 bins
-    # log-spaced to 4096 (core/bins.make_edges(32, 4096, "log")), random
-    # weights at the init scales. Hidden 128: the dispatch head at its
-    # padded buckets 8-64 and max_batch 512, levels (0.5, 0.9); hidden 64:
-    # the refine table's head; hidden 32: the hazard head, one call on its
-    # ~24-row progress grid at q=0.5. Same tolerance as above. d=4 is below
-    # the kernel's 32-row d-slice (28 rows masked); B <= 32 is one launch.
-    import numpy as np
 
+def quantiles_in_cdf(label, args, levels):
+    """A head row's criterion where a quantile may cross a wide log bin of
+    little mass: probs at the head's tolerance, quantiles by
+    ``hold_quantiles`` under the fp64 head."""
+    def criterion(got, want):
+        if not torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-6):
+            return f"probs max err {max_err(got[0], want[0])}"
+        hold_quantiles(label, got[1], want[1], levels, head_fp64(*args[:5])[1], args[5])
+        return None
+    return criterion
+
+
+def flash_case(g, B, S, H, KV, hd, dtype, lens, window, label, causal=True, Skv=None,
+               hd_v=None, scale=None):
+    """A flash row: q, k and v unit normal from ``g``; causal with S keys, or
+    non-causal over ``Skv`` keys (an encoder, or cross-attention), V of
+    ``hd_v`` columns and the scores' ``scale`` where given (MLA)."""
+    Skv, hd_v = Skv or S, hd_v or hd
+    lens = torch.tensor(lens, dtype=torch.int32, device=g.device)
+    q, k, v = (randn(g, B, n, h, w, dtype=dtype)
+               for n, h, w in ((S, H, hd), (Skv, KV, hd), (Skv, KV, hd_v)))
+    return bk.flash_attention(q, k, v, causal=causal, window=window, kv_lengths=lens,
+                              scale=scale, label=label)
+
+
+def decode_case(g, B, Sc, H, KV, hd, dtype, lens, label, sweep=()):
+    """A decode row: q, k and v unit normal from ``g``; ``sweep``, the
+    splits to time beside the library's plan."""
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=g.device)
+    q, k, v = (randn(g, *s, dtype=dtype) for s in ((B, H, hd), (B, Sc, KV, hd), (B, Sc, KV, hd)))
+    return bk.decode_attention(q, k, v, lens, label=label, sweep=sweep)
+
+
+# the kernel phase's rows (``kernel_checks``), seed 0, in this order.
+# The head (hidden 512, levels 0.5/0.9/0.99, fp32: phi reaches the head as
+# fp32), (B, d, K): B=8 at the served widths d = 4096 (Llama; also timed
+# with W1 cold, a 64 MB buffer written between launches, as a server meets
+# it once per batch), 2048 (Zamba2) and 768 (Mamba2), d=4096 at B=512,
+# the Track-A width d=64 at the sim phase's 200 and Table 1's 350 test and
+# 700 train rows, the online heads at K=24 (bench_online's on tiny-lm's
+# d=128 over 48 prompts and ~256 decode states, the Llama online phase's on
+# 512 states), then B=8 at Qwen2.5-7B's 3584, Granite-20B's 6144,
+# MiniCPM-2B's 2304, Yi-34B's 7168, Whisper's 1280 and Qwen2-VL's 1536
+HEAD_SHAPES = ((8, 4096, 64), (8, 2048, 64), (8, 768, 64), (512, 4096, 64),
+               (200, 64, 64), (350, 64, 64), (700, 64, 64),
+               (48, 128, 24), (256, 128, 24), (512, 4096, 24),
+               (8, 3584, 64), (8, 6144, 64), (8, 2304, 64), (8, 7168, 64),
+               (8, 1280, 64), (8, 1536, 64))
+# the cluster's heads on d=4 trace features (serving/arrivals.py's latents),
+# K=32 bins log-spaced to 4096, (B, hidden, levels): hidden 128 the dispatch
+# head at its padded buckets 8-64 and max_batch 512, 64 the refine table's,
+# 32 the hazard head's one call on its ~24-row progress grid. d=4 is below
+# the kernel's 32-row d-slice (28 rows masked); B <= 32 is one launch
+TRACE_HEAD_SHAPES = ((8, 128, (0.5, 0.9)), (16, 128, (0.5, 0.9)), (32, 128, (0.5, 0.9)),
+                     (64, 128, (0.5, 0.9)), (512, 128, (0.5, 0.9)), (8, 64, (0.5, 0.9)),
+                     (64, 64, (0.5, 0.9)), (24, 32, (0.5,)))
+# the bins ablation's grids (launch/bench_bins_ablation.py): d=64, hidden 512
+# on qwen/chat's 400 test prompts, K = 16 and 128 (the kernel's largest) with
+# linear and log edges up to the scenario's bin_max
+BINS_SHAPES = ((16, "linear"), (16, "log"), (128, "linear"), (128, "log"))
+# a serve phase's batch: 8 prompts padded to 512, and 8 caches of 576 slots
+SERVE_LENS = (512, 300, 257, 480, 399, 511, 266, 448)
+DECODE_SERVE_LENS = (576, 301, 258, 540, 400, 575, 267, 449)
+# (n splits, c keys a split) timed beside the library's plan at Sc=576;
+# WIDE_SWEEP's last also at the other widths
+SWEEP = ((1, 576), (2, 320), (3, 192), (5, 128), (6, 96), (9, 64))
+WIDE_SWEEP = SWEEP + ((18, 32),)
+bf16, fp32 = torch.bfloat16, torch.float32
+# flash at the served models' prefill (B=8, S=512, bf16, causal, ragged):
+# Llama-3-8B, Zamba2's shared block (window 8192), Qwen2.5-7B (G=7),
+# Granite-20B (G=48), MiniCPM-2B (MHA, hd=64), Yi-34B (G=7); decode at their
+# caches (B=8, Sc=576), with the split sweep at the first two
+SERVE_FLASH = tuple((8, 512, H, KV, hd, bf16, SERVE_LENS, w, "")
+                    for H, KV, hd, w in ((32, 8, 128, 0), (32, 32, 64, 8192), (28, 4, 128, 0),
+                                         (48, 1, 128, 0), (36, 36, 64, 0), (56, 8, 128, 0)))
+SERVE_DECODE = tuple((8, 576, H, KV, hd, bf16, DECODE_SERVE_LENS, "", SWEEP if i < 2 else ())
+                     for i, (H, KV, hd) in enumerate(((32, 8, 128), (32, 32, 64), (28, 4, 128),
+                                                      (48, 1, 128), (36, 36, 64), (56, 8, 128))))
+# fp32 at the online phase (bench_online: tiny-lm's H=4 on KV=2, hd=32, 48
+# prompts of 6 tokens, every key valid; decode on 6 + 80 slots, lengths
+# drawn from the generator): the SIMT kernels, not the wgmma ones
+ONLINE_FLASH = (48, 6, 4, 2, 32, fp32, (6,) * 48, 0, "bench_online")
+# the scan at Zamba2's prefill (H=64, N=64), Mamba2-130M's (H=24, N=128) and
+# a ragged S=509, bf16 x, B and C as the models give them, dt = softplus(randn),
+# a = -decay dt; decay 0.01 at both widths, where the state carried across
+# chunks is most of y (with a = -dt, exp(cum_i) hides it after a few rows of
+# each chunk): (B, S, H, P, N, decay)
+SCAN_SHAPES = ((8, 512, 64, 64, 64, 1.0), (8, 512, 24, 64, 128, 1.0), (8, 509, 64, 64, 64, 1.0),
+               (8, 509, 64, 64, 64, 0.01), (8, 509, 24, 64, 128, 0.01))
+
+
+def kernel_checks():
+    """Phase 3: every kernel against its plain version at the serving shapes
+    (the tables above), through ``bench_kernels.measure``: held (its
+    tolerance or criterion, a second call bit-identical, two launches, the
+    library yardstick agreeing), timed beside its plain version and the
+    library call, against its bound; then the fp32 scan against fp64
+    (``scan_against_fp64``)."""
     from repro_torch.core.bins import make_edges
-    from repro_torch.serving.arrivals import TraceConfig, make_trace
-
-    K = 32
-    edges = make_edges(K, 4096.0, "log", device=dev)
-    trace_phi = np.stack([r.phi for r in make_trace(TraceConfig(n_requests=512, seed=0))])
-    for B, hidden, levels in ((8, 128, (0.5, 0.9)), (16, 128, (0.5, 0.9)),
-                              (32, 128, (0.5, 0.9)), (64, 128, (0.5, 0.9)),
-                              (512, 128, (0.5, 0.9)), (8, 64, (0.5, 0.9)),
-                              (64, 64, (0.5, 0.9)), (24, 32, (0.5,))):
-        d = 4
-        phi = torch.from_numpy(trace_phi[:B].astype(np.float32)).to(dev)
-        w1 = torch.randn(d, hidden, generator=g, device=dev) / d ** 0.5
-        b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
-        w2 = torch.randn(hidden, K, generator=g, device=dev) / hidden ** 0.5
-        b2 = torch.zeros(K, device=dev)
-        lv = torch.tensor(levels, device=dev)
-        args = (phi, w1, b1, w2, b2, edges)
-        probs, quants = kernels["prod_head"](*args, lv)
-        again = kernels["prod_head"](*args, lv)
-        p_ref, q_ref = ref.prod_head_ref(*args, qs=lv)
-        torch.cuda.synchronize()
-        check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
-              f"prod_head probs B={B} d=4 hidden={hidden}: max err {max_err(torch, probs, p_ref)}")
-        hold_quantiles(torch, f"B={B} d=4 hidden={hidden}", quants, q_ref, lv,
-                       head_fp64(torch, *args[:5])[1], edges)
-        check(torch.equal(probs, again[0]) and torch.equal(quants, again[1]),
-              f"prod_head B={B} d=4 hidden={hidden}: two calls differ")
-        call = lambda: kernels["prod_head"](*args, lv)
-        chain = lambda: torch.softmax(
-            torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1)
-        ms, dev_ms = time_ms(call), device_time_ms(call)
-        plain_ms = time_ms(lambda: ref.prod_head_ref(*args, qs=lv))
-        lib_ms, lib_dev_ms = time_ms(chain), device_time_ms(chain)
-        Q = len(levels)
-        nbytes = 4 * (B * d + d * hidden + hidden + hidden * K + K + K + 1 + Q + B * K + B * Q)
-        flops = 2 * B * d * hidden + 2 * B * hidden * K
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
-        rows.append({"name": "prod_head",
-                     "shape": f"B={B} d=4 hidden={hidden} K={K} Q={Q} fp32, log edges",
-                     "max_abs_err": max(max_err(torch, probs, p_ref), max_err(torch, quants, q_ref)),
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
-                     "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
-
-    # --- prod_head at the bins ablation's grids (launch/bench_bins_ablation.py):
-    # the Track-A width d=64, hidden 512, on the 400 test prompts of qwen/chat
-    # at the fast profile, K = 16 and 128 bins (128 is the kernel's largest
-    # K) with linear and log edges up to the scenario's bin_max, weights at
-    # the head's init scales. Same tolerance; a quantile that crosses a wide
-    # log bin holding little mass is held in the CDF (hold_quantiles).
     from repro_torch.data import make_scenario
     from repro_torch.launch.table1 import scenario_pcfg
+    from repro_torch.serving.arrivals import TraceConfig, make_trace
 
+    g = torch.Generator(device="cuda").manual_seed(0)
+    levels = torch.tensor([0.5, 0.9, 0.99], device="cuda")
+    cases = []
+    for B, d, K in HEAD_SHAPES:
+        w = head_weights(g, d, 512, K)
+        edges = torch.linspace(0.0, 600.0, K + 1, device="cuda")
+        cases.append(bk.prod_head(randn(g, B, d), *w, edges, levels, cold=(B, d) == (8, 4096)))
+    edges = make_edges(32, 4096.0, "log", device="cuda")
+    trace_phi = np.stack([r.phi for r in make_trace(TraceConfig(n_requests=512, seed=0))])
+    for B, hidden, lv in TRACE_HEAD_SHAPES:
+        phi = torch.from_numpy(trace_phi[:B].astype(np.float32)).cuda()
+        args = (phi, *head_weights(g, 4, hidden, 32), edges)
+        lv = torch.tensor(lv, device="cuda")
+        cases.append(bk.prod_head(*args, lv, label="log edges", criterion=quantiles_in_cdf(
+            f"B={B} d=4 hidden={hidden}", args, lv)))
     data = make_scenario("qwen", "chat", n_train=800, n_test=400, seed=0)
-    phi = torch.from_numpy(data.phi_test["last"].astype(np.float32)).to(dev)
-    B, d, hidden = phi.shape[0], phi.shape[1], 512
-    for K in (16, 128):
-        for spacing in ("linear", "log"):
-            edges = make_edges(K, scenario_pcfg(data, n_bins=K).bin_max, spacing, device=dev)
-            w1 = torch.randn(d, hidden, generator=g, device=dev) / d ** 0.5
-            b1 = torch.randn(hidden, generator=g, device=dev) * 0.01
-            w2 = torch.randn(hidden, K, generator=g, device=dev) / hidden ** 0.5
-            b2 = torch.zeros(K, device=dev)
-            args = (phi, w1, b1, w2, b2, edges)
-            probs, quants = kernels["prod_head"](*args, qs)
-            again = kernels["prod_head"](*args, qs)
-            p_ref, q_ref = ref.prod_head_ref(*args, qs=qs)
-            torch.cuda.synchronize()
-            label = f"B={B} d={d} K={K} {spacing} edges"
-            check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
-                  f"prod_head probs {label}: max err {max_err(torch, probs, p_ref)}")
-            hold_quantiles(torch, label, quants, q_ref, qs, head_fp64(torch, *args[:5])[1], edges)
-            check(torch.equal(probs, again[0]) and torch.equal(quants, again[1]),
-                  f"prod_head {label}: two calls differ")
-            call = lambda: kernels["prod_head"](*args, qs)
-            chain = lambda: torch.softmax(
-                torch.addmm(b2, torch.relu(torch.addmm(b1, phi, w1)), w2), dim=-1)
-            ms, dev_ms = time_ms(call), device_time_ms(call)
-            plain_ms = time_ms(lambda: ref.prod_head_ref(*args, qs=qs))
-            lib_ms, lib_dev_ms = time_ms(chain), device_time_ms(chain)
-            nbytes = 4 * (B * d + d * hidden + hidden + hidden * K + K + K + 1 + 3
-                          + B * K + B * 3)
-            flops = 2 * B * d * hidden + 2 * B * hidden * K
-            b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
-            rows.append({"name": "prod_head",
-                         "shape": f"B={B} d={d} hidden={hidden} K={K} Q=3 fp32, {spacing} edges",
-                         "max_abs_err": max(max_err(torch, probs, p_ref),
-                                            max_err(torch, quants, q_ref)),
-                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
-                         "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+    phi = torch.from_numpy(data.phi_test["last"].astype(np.float32)).cuda()
+    for K, spacing in BINS_SHAPES:
+        edges = make_edges(K, scenario_pcfg(data, n_bins=K).bin_max, spacing, device="cuda")
+        args = (phi, *head_weights(g, phi.shape[1], 512, K), edges)
+        cases.append(bk.prod_head(*args, levels, label=f"{spacing} edges", criterion=(
+            quantiles_in_cdf(f"B={phi.shape[0]} d={phi.shape[1]} K={K} {spacing} edges",
+                             args, levels))))
+    cases += [flash_case(g, *s) for s in SERVE_FLASH]
+    cases += [decode_case(g, *s) for s in SERVE_DECODE]
+    cases.append(flash_case(g, *ONLINE_FLASH))
+    online_lens = torch.randint(1, 87, (48,), generator=g, device="cuda", dtype=torch.int32)
+    cases.append(decode_case(g, 48, 86, 4, 2, 32, fp32, online_lens, "bench_online"))
+    for B, S, H, P, N, decay in SCAN_SHAPES:
+        x = randn(g, B, S, H, P, dtype=bf16)
+        dt = F.softplus(randn(g, B, S, H))
+        cases.append(bk.ssd_scan(x, dt, -decay * dt, randn(g, B, S, N, dtype=bf16),
+                                 randn(g, B, S, N, dtype=bf16),
+                                 label=f"a=-{decay}dt" if decay != 1 else ""))
+    rows = bk.measure(cases)
+    scan_against_fp64()
+    return rows
 
-    # --- flash attention at the prefill shapes of the served models:
-    # Llama-3-8B (H=32, KV=8, hd=128), Zamba2-1.2B's shared block (H=32,
-    # KV=32, hd=64, window 8192), then Qwen2.5-7B (28/4: G=7), Granite-20B
-    # (48/1: G=48), MiniCPM-2B (36/36, hd=64) and Yi-34B (56/8: G=7);
-    # B=8, S=512, bf16, causal, ragged key
-    # lengths; tolerance bf16 2e-2 (tests/test_kernels.py): both sides
-    # compute in fp32 and round the output to bf16 once.
-    bf = torch.bfloat16
-    B, S = 8, 512
-    lens = torch.tensor([512, 300, 257, 480, 399, 511, 266, 448], dtype=torch.int32, device=dev)
-    for H, KV, hd, window in ((32, 8, 128, 0), (32, 32, 64, 8192), (28, 4, 128, 0),
-                              (48, 1, 128, 0), (36, 36, 64, 0), (56, 8, 128, 0)):
-        q = torch.randn(B, S, H, hd, generator=g, device=dev).to(bf)
-        k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(bf)
-        v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(bf)
-        call = lambda: kernels["flash_attention"](q, k, v, causal=True, window=window,
-                                                  kv_lengths=lens)
-        out = call()
-        want = ref.flash_attention_ref(q, k, v, causal=True, window=window, kv_lengths=lens)
-        torch.cuda.synchronize()
-        check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
-              f"flash_attention hd={hd}: max err {max_err(torch, out, want)}")
-        ms, dev_ms = time_ms(call), device_time_ms(call)
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(
-            q, k, v, causal=True, window=window, kv_lengths=lens), iters=5)
-        G = H // KV
-        qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
-                      v.repeat_interleave(G, dim=2).transpose(1, 2))
-        pos = torch.arange(S, device=dev)
-        allowed = pos[None, :] <= pos[:, None]
-        if window:
-            allowed = allowed & (pos[:, None] - pos[None, :] < window)
-        mask = (allowed[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-        lib_ms, lib_dev_ms = time_ms(sdpa), device_time_ms(sdpa)
-        pairs = int(mask.sum())               # (query, key) pairs this run computes
-        nbytes = 2 * (2 * B * S * H * hd + 2 * int(lens.long().sum()) * KV * hd) + 4 * B
-        flops = 4 * hd * H * pairs
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        rows.append({"name": "flash_attention",
-                     "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal ragged"
-                              + (f" window={window}" if window else ""),
-                     "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                     "bytes": nbytes, "flops": flops,
-                     "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
-    # --- decode attention at the decode shapes: B=8, Sc=576, ragged
-    # lengths, bf16, Llama-3-8B's heads and Zamba2's, then the dense configs'
-    # (G=7, G=48 on one KV head, MiniCPM-2B's MHA); tolerance 2e-2. The
-    # yardstick is SDPA on the cache as the kernel takes it (K/V heads
-    # transposed as views, enable_gqa: no copy made outside the call). Timed
-    # L2 warm (the 19-38 MB cache fits the 50 MB L2) and, as the serve path
-    # meets a layer's cache a whole step after its last read, L2 cold.
-    from repro_torch.kernels.decode_attention import plan as decode_plan
-
-    Sc = 576
-    dl = torch.tensor([576, 301, 258, 540, 400, 575, 267, 449], dtype=torch.int32, device=dev)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    for H, KV, hd in ((32, 8, 128), (32, 32, 64), (28, 4, 128), (48, 1, 128), (36, 36, 64),
-                      (56, 8, 128)):
-        qd = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
-        kc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
-        vc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(bf)
-        out = kernels["decode_attention"](qd, kc, vc, dl)
-        again = kernels["decode_attention"](qd, kc, vc, dl)
-        want = ref.decode_attention_ref(qd, kc, vc, dl)
-        torch.cuda.synchronize()
-        check(torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2),
-              f"decode_attention hd={hd}: max err {max_err(torch, out, want)}")
-        check(torch.equal(out, again), f"decode_attention hd={hd}: two calls differ")
-        call = lambda: kernels["decode_attention"](qd, kc, vc, dl)
-        ms, dev_ms = time_ms(call, iters=50), device_time_ms(call, iters=50)
-        plain_ms = time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, dl))
-        qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-        dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
-        sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask,
-                                                      enable_gqa=True)
-        check(torch.allclose(sdpa()[:, :, 0].float(), want.float(), rtol=2e-2, atol=2e-2),
-              f"SDPA yardstick hd={hd} disagrees with the plain version")
-        lib_ms, lib_dev_ms = (time_ms(sdpa, iters=50),
-                              device_time_ms(sdpa, iters=50))
-        n_keys = int(dl.long().sum())
-        nbytes = 2 * (2 * B * H * hd + 2 * n_keys * KV * hd) + 4 * B
-        flops = 4 * hd * H * n_keys
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        row = {"name": "decode_attention",
-               "shape": f"B={B} Sc={Sc} H={H} KV={KV} hd={hd} bf16 ragged",
-               "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-               "bytes": nbytes, "flops": flops,
-               "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
-        row["cold_ms"], row["cold_device_ms"] = time_ms_cold(call, flush)
-        row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(sdpa, flush)
-        # other splits (head tile, splits, keys a split): device time warm and
-        # cold, and the output against the plain version's: both round an fp32
-        # value to bf16, so they may differ by one bf16 step (give or take
-        # 2e-6 of fp32 error near 0), by no more
-        row["plan"] = list(decode_plan(dev, B, Sc, H, KV, hd, bf))
-        G = H // KV
-        n_blocks = row["plan"][1] * B * KV * -(-G // row["plan"][0])
-        print(f"decode_attention {row['shape']}: plan {row['plan']} (head tile, splits, keys "
-              f"a split): {n_blocks} blocks for "
-              f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
-        rows.append(row)
-        if (H, KV, hd) not in ((32, 8, 128), (32, 32, 64)):
-            continue          # the split sweep at the two first-served shapes only
-        row["split_sweep"] = []
-        for p in sorted({tuple(row["plan"])} | {
-                (min(8, 1 << (G - 1).bit_length()), n, c)
-                for n, c in ((1, 576), (2, 320), (3, 192), (5, 128), (6, 96), (9, 64))}):
-            forced = lambda: kernels["decode_attention"](qd, kc, vc, dl, with_plan=p)
-            got = forced()
-            torch.cuda.synchronize()
-            step = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
-            check(bool(((got.float() - want.float()).abs() <= step + 2e-6).all()),
-                  f"decode_attention hd={hd} plan {p}: more than one bf16 step from the "
-                  f"plain version (max|err| {max_err(torch, got, want)})")
-            row["split_sweep"].append({
-                "plan": list(p), "device_ms": device_time_ms(forced, iters=50),
-                "cold_device_ms": time_ms_cold(forced, flush)[1],
-                "max_abs_err": max_err(torch, got, want)})
-        print(f"decode_attention {row['shape']}: plan {row['plan']} (head tile, splits, keys "
-              f"a split); other splits: " + "; ".join(
-                  f"{e['plan']} {e['device_ms']:.4f} ms warm, {e['cold_device_ms']:.4f} cold, "
-                  f"max|err| {e['max_abs_err']:.3g}"
-                  for e in row["split_sweep"]))
-    del flush
-
-    # --- flash attention in fp32 at the online phase's prefill
-    # (bench_online: tiny-lm's H=4, KV=2, hd=32 on 48 prompts of 6 tokens,
-    # every key valid), causal; tolerance fp32 2e-5 (tests/test_kernels.py).
-    # fp32 runs the SIMT kernel, not the wgmma one. Yardstick: SDPA,
-    # is_causal with enable_gqa.
-    f32 = torch.float32
-    B, S, H, KV, hd = 48, 6, 4, 2, 32
-    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
-    q = torch.randn(B, S, H, hd, generator=g, device=dev)
-    k = torch.randn(B, S, KV, hd, generator=g, device=dev)
-    v = torch.randn(B, S, KV, hd, generator=g, device=dev)
-    call = lambda: kernels["flash_attention"](q, k, v, causal=True, kv_lengths=lens)
-    out, again = call(), call()
-    want = ref.flash_attention_ref(q, k, v, causal=True, kv_lengths=lens)
-    torch.cuda.synchronize()
-    check(out.dtype == f32 and torch.allclose(out, want, rtol=2e-5, atol=2e-5),
-          f"flash_attention fp32 tiny-lm: max err {max_err(torch, out, want)}")
-    check(torch.equal(out, again), "flash_attention fp32 tiny-lm: two calls differ")
-    ms, dev_ms = time_ms(call), device_time_ms(call)
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
-                                                              kv_lengths=lens))
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_ms, lib_dev_ms = time_ms(sdpa), device_time_ms(sdpa)
-    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd) + 4 * B
-    flops = 4 * hd * H * B * S * (S + 1) // 2
-    b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
-    rows.append({"name": "flash_attention",
-                 "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} fp32 causal (bench_online)",
-                 "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                 "bytes": nbytes, "flops": flops,
-                 "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
-
-    # --- decode attention in fp32 at the online phase's decode steps
-    # (bench_online: tiny-lm's heads, B=48, a cache of 6 + 80 keys), ragged
-    # lengths from the generator; tolerance fp32 2e-5. Yardstick as above.
-    B, Sc, H, KV, hd = 48, 86, 4, 2, 32
-    dl = torch.randint(1, Sc + 1, (B,), generator=g, device=dev, dtype=torch.int32)
-    qd = torch.randn(B, H, hd, generator=g, device=dev)
-    kc = torch.randn(B, Sc, KV, hd, generator=g, device=dev)
-    vc = torch.randn(B, Sc, KV, hd, generator=g, device=dev)
-    call = lambda: kernels["decode_attention"](qd, kc, vc, dl)
-    out, again = call(), call()
-    want = ref.decode_attention_ref(qd, kc, vc, dl)
-    torch.cuda.synchronize()
-    check(out.dtype == f32 and torch.allclose(out, want, rtol=2e-5, atol=2e-5),
-          f"decode_attention fp32 tiny-lm: max err {max_err(torch, out, want)}")
-    check(torch.equal(out, again), "decode_attention fp32 tiny-lm: two calls differ")
-    ms, dev_ms = time_ms(call, iters=50), device_time_ms(call, iters=50)
-    plain_ms = time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, dl))
-    qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
-    sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask,
-                                                  enable_gqa=True)
-    lib_ms, lib_dev_ms = (time_ms(sdpa, iters=50), device_time_ms(sdpa, iters=50))
-    n_keys = int(dl.long().sum())
-    nbytes = 4 * (2 * B * H * hd + 2 * n_keys * KV * hd) + 4 * B
-    flops = 4 * hd * H * n_keys
-    b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
-    rows.append({"name": "decode_attention",
-                 "shape": f"B={B} Sc={Sc} H={H} KV={KV} hd={hd} fp32 ragged (bench_online)",
-                 "max_abs_err": max_err(torch, out, want), "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                 "bytes": nbytes, "flops": flops,
-                 "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
-
-    # --- ssd_scan: Zamba2's prefill shape (B=8, S=512, H=64, P=64, N=64),
-    # Mamba2-130M's (H=24, N=128) and a ragged S=509, bf16 inputs as the
-    # served models give them, dt = softplus(randn) and a = -dt; then both
-    # widths at a ragged S with a slow decay, a = -0.01 dt, where the state
-    # carried across chunks is most of y (with a = -dt, exp(cum_i) hides it
-    # after a few rows of each chunk). Tolerances: y bf16 2e-2 (rounded once
-    # from fp32 on both sides), h fp32 at the reference's SSD tolerance 2e-4
-    # (tests/test_kernels.py: chunked decays exp(cum_i - cum_j) against the
-    # recurrence's product of exp(a_t)). No single PyTorch call computes the
-    # scan: library_ms is null. The bf16 kernel's products run on the tensor
-    # cores, so its bound counts them at the bf16 peak (``bound_ms``); the
-    # first version's bound, the same work at the fp32 CUDA-core peak, stands
-    # beside it (``fp32_bound_ms``).
-    for B, S, H, P, N, decay in ((8, 512, 64, 64, 64, 1.0), (8, 512, 24, 64, 128, 1.0),
-                                 (8, 509, 64, 64, 64, 1.0), (8, 509, 64, 64, 64, 0.01),
-                                 (8, 509, 24, 64, 128, 0.01)):
-        x = torch.randn(B, S, H, P, generator=g, device=dev).to(bf)
-        dt = F.softplus(torch.randn(B, S, H, generator=g, device=dev))
-        a = -decay * dt
-        Bm = torch.randn(B, S, N, generator=g, device=dev).to(bf)
-        Cm = torch.randn(B, S, N, generator=g, device=dev).to(bf)
-        args = (x, dt, a, Bm, Cm)
-        y, h = kernels["ssd_scan"](*args)
-        y2, h2 = kernels["ssd_scan"](*args)
-        y_ref, h_ref = ref.ssd_scan_ref(*args)
-        torch.cuda.synchronize()
-        shape = f"B={B} S={S} H={H} P={P} N={N} bf16" + (f" a=-{decay}dt" if decay != 1 else "")
-        print(f"ssd_scan {shape}: y max|err| {max_err(torch, y, y_ref):.3g} at max|y| "
-              f"{float(y_ref.float().abs().max()):.4g} (bf16 step there "
-              f"{2.0 ** (int(torch.log2(y_ref.float().abs().max()).floor()) - 7):.3g}); h max|err| "
-              f"{max_err(torch, h, h_ref):.3g} at max|h| {float(h_ref.abs().max()):.4g}; "
-              f"decay over a 64-step chunk, median {float(a[:, :64].sum(1).exp().median()):.3g}")
-        check(torch.allclose(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2),
-              f"ssd_scan y {shape}: max err {max_err(torch, y, y_ref)}")
-        check(torch.allclose(h, h_ref, rtol=2e-4, atol=2e-4),
-              f"ssd_scan h {shape}: max err {max_err(torch, h, h_ref)}")
-        check(torch.equal(y, y2) and torch.equal(h, h2), f"ssd_scan {shape}: two calls differ")
-        call = lambda: kernels["ssd_scan"](*args)
-        ms, dev_ms = time_ms(call), device_time_ms(call)
-        plain_ms = time_ms(lambda: ref.ssd_scan_ref(*args), iters=3, warmup=1)
-        nbytes = (2 * 2 * B * S * H * P + 2 * 4 * B * S * H + 2 * 2 * B * S * N
-                  + 4 * B * H * P * N)
-        flops = ssd_scan_flops(B, S, H, P, N)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        row = {"name": "ssd_scan", "shape": shape,
-               "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, h, h_ref)),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None, "bytes": nbytes, "flops": flops,
-               "device_ms": dev_ms, "library_device_ms": None,
-               "fp32_bound_ms": bound(nbytes, flops, FP32_FLOPS)[0]}
-        rows.append(row)
-
-    # fp32 inputs with no decay (a = 0): the state grows over the whole
-    # sequence and |y| reaches ~900, where two fp32 summation orders differ by
-    # more than 2e-4; y is held against an fp64 recurrence at 2e-4 (h against
-    # the plain version), as tests/test_torch_kernels_gpu.py's
-    # test_ssd_scan_no_decay does, on its inputs (numpy seed 7). Printed: the
-    # kernel's and the plain version's largest error against fp64, and the
-    # largest share of the tolerance the kernel uses.
+def scan_against_fp64():
+    """The fp32 scan with no decay (a = 0): the state grows over the whole
+    sequence and |y| reaches ~900, where two fp32 summation orders differ by
+    more than 2e-4; y is held against an fp64 recurrence at 2e-4 (h against
+    the plain version), as tests/test_torch_kernels_gpu.py's
+    test_ssd_scan_no_decay does, on its inputs (numpy seed 7). Printed: the
+    kernel's and the plain version's largest error against fp64, and the
+    largest share of the tolerance the kernel uses."""
     for S in (65, 509):
         B, H, P, N = 2, 64, 64, 64
         rng = np.random.default_rng(7)    # drawn in the test's order
         dtn = np.log1p(np.exp(rng.standard_normal((B, S, H))))
         a = 0.0 * dtn * np.exp(0.3 * rng.standard_normal(H))
-        f32 = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)
+        f32 = lambda v: torch.from_numpy(v.astype(np.float32)).cuda()
         args = (f32(rng.standard_normal((B, S, H, P))), f32(dtn), f32(a),
                 f32(rng.standard_normal((B, S, N))), f32(rng.standard_normal((B, S, N))))
-        y, h = kernels["ssd_scan"](*args)
+        y, h = ops.ssd_scan(*args)
         y_plain, h_plain = ref.ssd_scan_ref(*args)
-        y_exact = ssd_fp64(torch, *args)
+        y_exact = ssd_fp64(*args)
         err = (y.double() - y_exact).abs()
         share = float((err / (2e-4 + 2e-4 * y_exact.abs())).max())
         print(f"ssd_scan B={B} S={S} H={H} P={P} N={N} fp32 a=0 against fp64: kernel y "
               f"max|err| {float(err.max()):.3g}, plain version "
               f"{float((y_plain.double() - y_exact).abs().max()):.3g} at max|y| "
               f"{float(y_exact.abs().max()):.4g}; the kernel uses {100 * share:.1f}% of the "
-              f"2e-4 tolerance; h against the plain version {max_err(torch, h, h_plain):.3g}")
+              f"2e-4 tolerance; h against the plain version {max_err(h, h_plain):.3g}")
         check(share <= 1.0, f"ssd_scan fp32 a=0 S={S}: y off the fp64 recurrence")
         if S == 65:
             # its sums run in blocks of 16 terms: as close to fp64 as the plain version
             check(float(err.max()) <= 1.5 * float((y_plain.double() - y_exact).abs().max()),
                   "ssd_scan fp32 a=0 S=65: more than 1.5x the plain version's error")
         check(torch.allclose(h, h_plain, rtol=2e-4, atol=2e-4),
-              f"ssd_scan fp32 a=0 S={S}: h max err {max_err(torch, h, h_plain)}")
-
-    report_rows(rows)
-    return rows
+              f"ssd_scan fp32 a=0 S={S}: h max err {max_err(h, h_plain)}")
 
 
-G3_SERVE_LENS = (512, 300, 257, 480, 399, 511, 266, 448)
+def width_checks(flash_rows, decode_rows, seed: int):
+    """Both attention kernels at a model's heads (``flash_case`` and
+    ``decode_case`` rows, drawn from ``seed``, flash first) through
+    ``bench_kernels.measure``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return bk.measure([flash_case(g, *s) for s in flash_rows]
+                      + [decode_case(g, *s) for s in decode_rows])
 
 
-def width_checks(torch, ref, kernels, flash_rows, decode_rows, seed: int, what: str):
-    """Both attention kernels at a model's heads against their plain
-    versions (bf16 2e-2, fp32 2e-5, as tests/test_kernels.py), a second call
-    bit-identical, timed eagerly and from a CUDA graph beside the plain
-    version and SDPA on the same inputs (its backend printed), with the
-    bound computed from the true head width (a kernel tile padded past it,
-    as at hd=112 and 168, does more work than the bound counts). The decode
-    rows are also timed with the L2 cache cold, and a row asked to sweeps
-    other splits. ``flash_rows``: (B, S, H, KV, hd, dtype, lengths, window,
-    label), causal with S keys, or with two more fields (causal, Skv): the
-    lengths are the keys' (an encoder: non-causal, Skv = S; cross-attention:
-    non-causal, Skv != S), and two more (hd_v, scale) where V is narrower
-    than Q and K and the scores take a given scale (MLA); ``decode_rows``: (B, Sc, H, KV, hd, dtype,
-    lengths, label, sweep). Inputs are unit normal, drawn from ``seed``.
-    Where no key is masked, SDPA is called with no mask."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.decode_attention import plan as decode_plan
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    bf = torch.bfloat16
-    rows = []
-
-    def flash_row(B, S, Hq, Kv, hd, dtype, lens, window, label, causal=True, Skv=None,
-                  hd_v=None, scale=None):
-        tol = 2e-2 if dtype == bf else 2e-5
-        Skv, hd_v = Skv or S, hd_v or hd
-        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-        q = torch.randn(B, S, Hq, hd, generator=g, device=dev).to(dtype)
-        k = torch.randn(B, Skv, Kv, hd, generator=g, device=dev).to(dtype)
-        v = torch.randn(B, Skv, Kv, hd_v, generator=g, device=dev).to(dtype)
-        n0 = kernels["flash_attention"].launches
-        call = lambda: kernels["flash_attention"](q, k, v, causal=causal, window=window,
-                                                  kv_lengths=lens, scale=scale)
-        out, again = call(), call()
-        check(kernels["flash_attention"].launches == n0 + 2,
-              f"flash_attention hd={hd} {label}: two calls, "
-              f"{kernels['flash_attention'].launches - n0} launches")
-        plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                                kv_lengths=lens, scale=scale)
-        want = plain()
-        torch.cuda.synchronize()
-        wide = f"hd={hd}" + (f"/{hd_v}" if hd_v != hd else "")
-        check(out.shape == (B, S, Hq, hd_v), f"flash_attention {wide} {label}: {out.shape}")
-        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
-              f"flash_attention {wide} {label}: max err {max_err(torch, out, want)}")
-        check(torch.equal(out, again), f"flash_attention {wide} {label}: two calls differ")
-        G = Hq // Kv
-        qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
-                      v.repeat_interleave(G, dim=2).transpose(1, 2))
-        qpos, kpos = torch.arange(S, device=dev), torch.arange(Skv, device=dev)
-        allowed = torch.ones((S, Skv), dtype=torch.bool, device=dev)
-        if causal:
-            allowed = kpos[None, :] <= qpos[:, None]
-        if window:
-            allowed = allowed & (qpos[:, None] - kpos[None, :] < window)
-        mask = (allowed[None] & (kpos[None, None, :] < lens[:, None, None]))[:, None]
-        pairs = int(mask.sum())
-        sdpa_mask = None if pairs == mask.numel() else mask
-        given = {} if scale is None else {"scale": scale}
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask, **given)
-        backend = sdpa_backend(qt, kt, vt, sdpa_mask, **given)
-        eb = 2 if dtype == bf else 4
-        # q and k at hd, v and o at hd_v
-        nbytes = eb * (B * S * Hq * (hd + hd_v)
-                       + int(lens.long().sum()) * Kv * (hd + hd_v)) + 4 * B
-        flops = 2 * (hd + hd_v) * Hq * pairs
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == bf else FP32_FLOPS)
-        empty = int((~mask.any(-1)).sum())
-        print(f"flash_attention {wide} {label}: SDPA backend {backend}; {pairs} (query, key) "
-              f"pairs, {empty} query rows with no valid key (padded rows included)")
-        kind = "causal" if causal else "non-causal"
-        keys = f"Sq={S} Skv={Skv}" if Skv != S else f"S={S}"
-        ragged = "all keys valid" if int(lens.min()) == Skv else "ragged"
-        rows.append({"name": "flash_attention",
-                     "shape": f"B={B} {keys} H={Hq} KV={Kv} {wide} {str(dtype)[6:]} {kind} "
-                              f"{ragged}{f' window={window}' if window else ''}"
-                              f"{f' scale={scale:.5f}' if scale is not None else ''} ({label})",
-                     "max_abs_err": max_err(torch, out, want),
-                     "ms": time_ms(call), "plain_ms": time_ms(plain, iters=3),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
-                     "bytes": nbytes, "flops": flops, "device_ms": device_time_ms(call),
-                     "library_device_ms": device_time_ms(sdpa),
-                     "library_backend": backend})
-
-    for spec in flash_rows:
-        flash_row(*spec)
-
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-
-    def decode_row(B, Sc, Hq, Kv, hd, dtype, lens, label, sweep):
-        tol = 2e-2 if dtype == bf else 2e-5
-        dl = torch.tensor(lens, dtype=torch.int32, device=dev)
-        qd = torch.randn(B, Hq, hd, generator=g, device=dev).to(dtype)
-        kc = torch.randn(B, Sc, Kv, hd, generator=g, device=dev).to(dtype)
-        vc = torch.randn(B, Sc, Kv, hd, generator=g, device=dev).to(dtype)
-        call = lambda: kernels["decode_attention"](qd, kc, vc, dl)
-        out, again = call(), call()
-        plain = lambda: ref.decode_attention_ref(qd, kc, vc, dl)
-        want = plain()
-        torch.cuda.synchronize()
-        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
-              f"decode_attention hd={hd} {label}: max err {max_err(torch, out, want)}")
-        check(torch.equal(out, again), f"decode_attention hd={hd} {label}: two calls differ")
-        qdt, kct, vct = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-        dmask = (torch.arange(Sc, device=dev)[None, :] < dl[:, None])[:, None, None]
-        sdpa = lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=dmask,
-                                                      enable_gqa=True)
-        check(torch.allclose(sdpa()[:, :, 0].float(), want.float(), rtol=tol, atol=tol),
-              f"SDPA yardstick hd={hd} {label} disagrees with the plain version")
-        backend = sdpa_backend(qdt, kct, vct, dmask, enable_gqa=True)
-        n_keys = int(dl.long().sum())
-        eb = 2 if dtype == bf else 4
-        nbytes = eb * (2 * B * Hq * hd + 2 * n_keys * Kv * hd) + 4 * B
-        flops = 4 * hd * Hq * n_keys
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == bf else FP32_FLOPS)
-        ragged = "all keys valid" if int(dl.min()) == Sc else "ragged"
-        row = {"name": "decode_attention",
-               "shape": f"B={B} Sc={Sc} H={Hq} KV={Kv} hd={hd} {str(dtype)[6:]} {ragged} "
-                        f"({label})",
-               "max_abs_err": max_err(torch, out, want), "ms": time_ms(call, iters=50),
-               "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": time_ms(sdpa, iters=50), "bytes": nbytes, "flops": flops,
-               "device_ms": device_time_ms(call, iters=50),
-               "library_device_ms": device_time_ms(sdpa, iters=50),
-               "library_backend": backend,
-               "plan": list(decode_plan(dev, B, Sc, Hq, Kv, hd, dtype))}
-        if dtype == bf:
-            row["cold_ms"], row["cold_device_ms"] = time_ms_cold(call, flush)
-            row["library_cold_ms"], row["library_cold_device_ms"] = time_ms_cold(sdpa,
-                                                                                 flush)
-        G = Hq // Kv
-        n_blocks = row["plan"][1] * B * Kv * -(-G // row["plan"][0])
-        print(f"decode_attention {row['shape']}: SDPA backend {backend}; plan {row['plan']} "
-              f"(head tile, splits, keys a split): {n_blocks} blocks")
-        if sweep:
-            # other splits, each within one bf16 step of the plain version (as
-            # kernel_checks' sweep), a second call bit-identical
-            row["split_sweep"] = []
-            gt = row["plan"][0]
-            for p in sorted({tuple(row["plan"])} | {
-                    (gt, n, c) for n, c in ((1, 576), (2, 320), (3, 192), (5, 128), (6, 96),
-                                            (9, 64), (18, 32))}):
-                forced = lambda: kernels["decode_attention"](qd, kc, vc, dl, with_plan=p)
-                got, got2 = forced(), forced()
-                torch.cuda.synchronize()
-                step = torch.exp2(torch.floor(torch.log2(
-                    want.float().abs().clamp_min(1e-30))) - 7)
-                check(bool(((got.float() - want.float()).abs() <= step + 2e-6).all()),
-                      f"decode_attention hd={hd} plan {p}: more than one bf16 step from the "
-                      f"plain version (max|err| {max_err(torch, got, want)})")
-                check(torch.equal(got, got2),
-                      f"decode_attention hd={hd} plan {p}: two calls differ")
-                row["split_sweep"].append({
-                    "plan": list(p), "device_ms": device_time_ms(forced, iters=50),
-                    "cold_device_ms": time_ms_cold(forced, flush)[1],
-                    "max_abs_err": max_err(torch, got, want)})
-            print(f"decode_attention {row['shape']}: other splits: " + "; ".join(
-                f"{e['plan']} {e['device_ms']:.4f} ms warm, {e['cold_device_ms']:.4f} cold, "
-                f"max|err| {e['max_abs_err']:.3g}" for e in row["split_sweep"]))
-        rows.append(row)
-
-    for spec in decode_rows:
-        decode_row(*spec)
-    del flush
-    report_rows(rows)
-    print(f"{what}: {len(rows)} kernel rows held")
-    return rows
-
-
-DECODE_SERVE_LENS = (576, 301, 258, 540, 400, 575, 267, 449)
-
-
-def gemma3_kernel_checks(torch, ref, kernels):
+def gemma3_kernel_checks():
     """Phase 3, Gemma3-27B's head width (hd=168, 32 query heads on 16 KV
-    heads), through ``width_checks``: flash at the serve phases' B=8, S=512
-    with their ragged lengths; at B=4, S=1,100 with the 1,024-key window (a
-    20-token row whose padded queries past 1,044 have no valid key); decode
-    at B=8, Sc=576 (G=2, with the split sweep) and on 1,024-slot rings; fp32
-    flash and decode at a small shape. The kernel's tiles are 192 columns
-    wide: 14% more P.V work than the bound counts."""
-    bf, f32 = torch.bfloat16, torch.float32
+    heads): flash at the serve phases' B=8, S=512; at B=4, S=1,100 with the
+    1,024-key window (a 20-token row whose padded queries past 1,044 have no
+    valid key); decode at B=8, Sc=576 (G=2, with the split sweep) and on
+    1,024-slot rings; fp32 flash and decode at a small shape. The kernel's
+    tiles are 192 columns wide: 14% more P.V work than the bound counts."""
     H, KV, hd = 32, 16, 168
-    flash = [(8, 512, H, KV, hd, bf, G3_SERVE_LENS, 0, "gemma3 serve"),
-             (4, 1100, H, KV, hd, bf, (1100, 1030, 900, 20), 1024, "gemma3 window"),
-             (2, 128, 4, 2, hd, f32, (128, 77), 0, "fp32")]
-    decode = [(8, 576, H, KV, hd, bf, DECODE_SERVE_LENS, "gemma3 serve", True),
-              (4, 1024, H, KV, hd, bf, (1024, 1024, 1024, 577), "gemma3 ring", False),
-              (4, 100, 4, 2, hd, f32, (100, 1, 57, 33), "fp32", False)]
-    return width_checks(torch, ref, kernels, flash, decode, seed=19, what="gemma3 kernels")
+    flash = [(8, 512, H, KV, hd, bf16, SERVE_LENS, 0, "gemma3 serve"),
+             (4, 1100, H, KV, hd, bf16, (1100, 1030, 900, 20), 1024, "gemma3 window"),
+             (2, 128, 4, 2, hd, fp32, (128, 77), 0, "fp32")]
+    decode = [(8, 576, H, KV, hd, bf16, DECODE_SERVE_LENS, "gemma3 serve", WIDE_SWEEP),
+              (4, 1024, H, KV, hd, bf16, (1024, 1024, 1024, 577), "gemma3 ring"),
+              (4, 100, 4, 2, hd, fp32, (100, 1, 57, 33), "fp32")]
+    return width_checks(flash, decode, seed=19)
 
 
-def moe_kernel_checks(torch, ref, kernels):
-    """Phase 3, the MoE configs' heads, through ``width_checks``: Qwen3-MoE
-    (64 query heads on 4 KV heads, hd=64, G=16: decode in 2 head tiles of 8)
-    and Kimi-K2 (64 on 8, hd=112: flash tiles of 128 columns, 14% more P.V
-    work than the bound counts; decode 8-lane rows with 7 lanes of 16
-    channels, 2 head tiles of 4), flash at the serve phases' B=8, S=512 and
-    decode at B=8, Sc=576 with their ragged lengths, in bf16 (Kimi's decode
-    with the split sweep); fp32 flash and decode at hd=112 at a small
-    shape."""
-    bf, f32 = torch.bfloat16, torch.float32
-    flash = [(8, 512, 64, 4, 64, bf, G3_SERVE_LENS, 0, "qwen3-moe serve"),
-             (8, 512, 64, 8, 112, bf, G3_SERVE_LENS, 0, "kimi serve"),
-             (2, 128, 8, 1, 112, f32, (128, 77), 0, "fp32")]
-    decode = [(8, 576, 64, 4, 64, bf, DECODE_SERVE_LENS, "qwen3-moe serve", False),
-              (8, 576, 64, 8, 112, bf, DECODE_SERVE_LENS, "kimi serve", True),
-              (4, 100, 8, 1, 112, f32, (100, 1, 57, 33), "fp32", False)]
-    return width_checks(torch, ref, kernels, flash, decode, seed=20, what="moe kernels")
+def moe_kernel_checks():
+    """Phase 3, the MoE configs' heads: Qwen3-MoE (64 query heads on 4 KV
+    heads, hd=64, G=16: decode in 2 head tiles of 8) and Kimi-K2 (64 on 8,
+    hd=112: flash tiles of 128 columns, 14% more P.V work than the bound
+    counts; decode 8-lane rows with 7 lanes of 16 channels, 2 head tiles of
+    4), flash at the serve phases' B=8, S=512 and decode at B=8, Sc=576, in
+    bf16 (Kimi's decode with the split sweep); fp32 flash and decode at
+    hd=112 at a small shape."""
+    flash = [(8, 512, 64, 4, 64, bf16, SERVE_LENS, 0, "qwen3-moe serve"),
+             (8, 512, 64, 8, 112, bf16, SERVE_LENS, 0, "kimi serve"),
+             (2, 128, 8, 1, 112, fp32, (128, 77), 0, "fp32")]
+    decode = [(8, 576, 64, 4, 64, bf16, DECODE_SERVE_LENS, "qwen3-moe serve"),
+              (8, 576, 64, 8, 112, bf16, DECODE_SERVE_LENS, "kimi serve", WIDE_SWEEP),
+              (4, 100, 8, 1, 112, fp32, (100, 1, 57, 33), "fp32")]
+    return width_checks(flash, decode, seed=20)
 
 
 # an admit batch of Kimi-K2-Instruct's cell at its widest: 8 prompts padded
@@ -985,26 +365,26 @@ def kimi_k2_instruct(depth: int):
     return ModelConfig(**md).with_overrides(n_layers=depth)
 
 
-def mla_kernel_checks(torch, ref, kernels):
+def mla_kernel_checks():
     """Phase 3, Kimi-K2-Instruct's latent attention at prefill
-    (``models/mla.py``), through ``width_checks``: the flash kernel with Q
-    and K of 192 columns (128 nope + 64 rope), V and O of 128, 64 heads (K
-    and V expanded a head each, so H = KV) and YaRN's softmax scale
-    (0.13086), in bf16, at the admit cell's widest batch (B=8, S=2,048,
-    ``KIMI_ADMIT_LENS``) and at B=8, S=512 with the serve phases' ragged
-    lengths; SDPA timed beside it with the same scale and the narrower V.
-    No decode row: the absorbed decode is batched products."""
+    (``models/mla.py``): the flash kernel with Q and K of 192 columns (128
+    nope + 64 rope), V and O of 128, 64 heads (K and V expanded a head
+    each, so H = KV) and YaRN's softmax scale (0.13086), in bf16, at the
+    admit cell's widest batch (B=8, S=2,048, ``KIMI_ADMIT_LENS``) and at
+    B=8, S=512 with the serve phases' ragged lengths; SDPA timed beside it
+    with the same scale and the narrower V. No decode row: the absorbed
+    decode is batched products."""
     from repro_torch.models import mla
 
-    bf, scale = torch.bfloat16, mla.softmax_scale(kimi_k2_instruct(2))
-    flash = [(8, 2048, 64, 64, 192, bf, KIMI_ADMIT_LENS, 0, "kimi-k2-instruct admit", True,
+    scale = mla.softmax_scale(kimi_k2_instruct(2))
+    flash = [(8, 2048, 64, 64, 192, bf16, KIMI_ADMIT_LENS, 0, "kimi-k2-instruct admit", True,
               None, 128, scale),
-             (8, 512, 64, 64, 192, bf, G3_SERVE_LENS, 0, "kimi-k2-instruct serve", True,
+             (8, 512, 64, 64, 192, bf16, SERVE_LENS, 0, "kimi-k2-instruct serve", True,
               None, 128, scale)]
-    return width_checks(torch, ref, kernels, flash, [], seed=32, what="mla kernels")
+    return width_checks(flash, [], seed=32)
 
 
-def mla_phase(torch, ref, counters):
+def mla_phase(counters):
     """Phase 4 for Kimi-K2-Instruct (``kimi_k2_instruct``) at its published
     widths, cut to the dense layer and one MoE layer, on the main path
     (``build_model`` -> ``RealEngine.repeated_sampling``) at the admit
@@ -1015,9 +395,6 @@ def mla_phase(torch, ref, counters):
     The first layer's flash call is held on its own inputs against the plain
     version (within 2e-2 of sum p|v|, as the long phase holds V as served), a
     second call bit-identical. A prefill and a decode step are timed."""
-    import numpy as np
-
-    from repro_torch.kernels import ops
     from repro_torch.models import mla
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serving.engine import RealEngine
@@ -1103,30 +480,27 @@ def mla_phase(torch, ref, counters):
 WHISPER_PLENS = (224, 32, 181, 97, 212, 64, 150, 129)     # decoder prompts, padded to 224
 
 
-def encdec_vlm_kernel_checks(torch, ref, kernels):
+def encdec_vlm_kernel_checks():
     """Phase 3, the shapes Whisper-large-v3 (20 heads of 64, MHA) and
     Qwen2-VL-2B (12 query heads on 2 KV heads of 128, G=6) give the
-    attention kernels, through ``width_checks``, all bf16 at B=8: flash over
-    Whisper's encoder (non-causal, 1,500 frames, every key valid), its
-    decoder's causal self-attention over the prompts (S=224, ragged) and its
-    cross-attention (non-causal, Sq=224 against the 1,500 encoder keys: the
-    last query tile holds 96 rows and the last key tile 92 keys), and
-    Qwen2-VL's causal prefill (S=512, ragged); decode on Whisper's self cache
-    (Sc=288, ragged), on its static cross cache (Sc=1,500, every key valid)
-    and at Qwen2-VL's G=6, padded to a head tile of 8 (Sc=576, with the
-    split sweep)."""
-    bf = torch.bfloat16
+    attention kernels, all bf16 at B=8: flash over Whisper's encoder
+    (non-causal, 1,500 frames, every key valid), its decoder's causal
+    self-attention over the prompts (S=224, ragged) and its cross-attention
+    (non-causal, Sq=224 against the 1,500 encoder keys: the last query tile
+    holds 96 rows and the last key tile 92 keys), and Qwen2-VL's causal
+    prefill (S=512, ragged); decode on Whisper's self cache (Sc=288,
+    ragged), on its static cross cache (Sc=1,500, every key valid) and at
+    Qwen2-VL's G=6, padded to a head tile of 8 (Sc=576, with the split
+    sweep)."""
     enc = (1500,) * 8
-    flash = [(8, 1500, 20, 20, 64, bf, enc, 0, "whisper encoder", False),
-             (8, 224, 20, 20, 64, bf, WHISPER_PLENS, 0, "whisper decoder self"),
-             (8, 224, 20, 20, 64, bf, enc, 0, "whisper cross", False, 1500),
-             (8, 512, 12, 2, 128, bf, G3_SERVE_LENS, 0, "qwen2-vl serve")]
-    decode = [(8, 288, 20, 20, 64, bf, tuple(n + 64 for n in WHISPER_PLENS), "whisper self",
-               False),
-              (8, 1500, 20, 20, 64, bf, enc, "whisper cross", False),
-              (8, 576, 12, 2, 128, bf, DECODE_SERVE_LENS, "qwen2-vl serve", True)]
-    return width_checks(torch, ref, kernels, flash, decode, seed=22,
-                        what="whisper and qwen2-vl kernels")
+    flash = [(8, 1500, 20, 20, 64, bf16, enc, 0, "whisper encoder", False),
+             (8, 224, 20, 20, 64, bf16, WHISPER_PLENS, 0, "whisper decoder self"),
+             (8, 224, 20, 20, 64, bf16, enc, 0, "whisper cross", False, 1500),
+             (8, 512, 12, 2, 128, bf16, SERVE_LENS, 0, "qwen2-vl serve")]
+    decode = [(8, 288, 20, 20, 64, bf16, tuple(n + 64 for n in WHISPER_PLENS), "whisper self"),
+              (8, 1500, 20, 20, 64, bf16, enc, "whisper cross"),
+              (8, 576, 12, 2, 128, bf16, DECODE_SERVE_LENS, "qwen2-vl serve", WIDE_SWEEP)]
+    return width_checks(flash, decode, seed=22)
 
 
 # the unembed's shapes on the main path: (label, d, V, tied, rows). Every
@@ -1143,61 +517,22 @@ UNEMBED_SHAPES = (
     ("whisper-large-v3", 1280, 51866, True, (8,)))
 
 
-def unembed_kernel_checks(torch, ref, kernels):
+def unembed_kernel_checks():
     """Phase 3, the unembed kernel at the main path's shapes
-    (``UNEMBED_SHAPES``), bf16 x (unit normal) and head (an untied head at
-    its init scale d^-0.5, a tied table at 0.02, seen as ``embed.T``): held
-    against its plain version, the fp32 product ``ref.unembed_ref``, within
-    1e-5 of the logits' largest magnitude (the two sum the same exact
-    products in another order and rounding, about 1e-6 of it apart; a
-    64-term stage lost or a column misplaced moves the logits by a tenth of
-    it), and a second call bit-identical. Both are also printed against an
-    fp64 product of the same bf16 values (the ``gpu`` tests of
-    ``tests/test_torch_unembed.py`` hold the kernel's error within twice
-    the fp32 product's). Timed beside the plain version and cuBLAS's bf16
-    GEMM with an fp32 output (the library yardstick, never used by the
-    port); bound: the bf16 head and x read once, the fp32 logits written
-    once, and the products at the bf16 peak."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(23)
-    rows = []
+    (``UNEMBED_SHAPES``, ``bench_kernels.unembed``), bf16 x (unit normal)
+    and head (an untied head at its init scale d^-0.5, a tied table at
+    0.02, seen as ``embed.T``); the ``gpu`` tests of
+    ``tests/test_torch_unembed.py`` hold the kernel's error against fp64
+    within twice the fp32 product's."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    cases = []
     for label, d, vocab, tied, ms in UNEMBED_SHAPES:
-        if tied:
-            w = (torch.randn(vocab, d, generator=g, device=dev) * 0.02).to(torch.bfloat16).T
-        else:
-            w = (torch.randn(d, vocab, generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
-        for m in ms:
-            x = torch.randn(m, d, generator=g, device=dev).to(torch.bfloat16)
-            got = kernels["unembed"](x, w)
-            again = kernels["unembed"](x, w)
-            want = ref.unembed_ref(x, w)
-            exact = x.double() @ w.double()
-            torch.cuda.synchronize()
-            shape = f"M={m} d={d} V={vocab} {'tied' if tied else 'untied'} ({label})"
-            err = max_err(torch, got, want)
-            scale = want.abs().max().item()
-            err64, plain64 = (float((t.double() - exact).abs().max()) for t in (got, want))
-            del exact
-            print(f"unembed {shape}: max|kernel - fp32 product| {err:.3g} at max|logit| "
-                  f"{scale:.3g}; against fp64: kernel {err64:.3g}, fp32 product {plain64:.3g} "
-                  f"({err64 / plain64:.2f}x)")
-            check(err <= 1e-5 * scale, f"unembed {shape}: max err {err} at scale {scale}")
-            check(torch.equal(got, again), f"unembed {shape}: two calls differ")
-            call = lambda: kernels["unembed"](x, w)
-            lib = lambda: torch.mm(x, w, out_dtype=torch.float32)
-            ms_, dev_ms = time_ms(call), device_time_ms(call)
-            plain_ms = time_ms(lambda: ref.unembed_ref(x, w))
-            lib_ms, lib_dev_ms = time_ms(lib), device_time_ms(lib)
-            nbytes, flops = 2 * (m * d + d * vocab) + 4 * m * vocab, 2 * m * d * vocab
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-            rows.append({"name": "unembed", "shape": shape, "max_abs_err": err, "ms": ms_,
-                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
-                         "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
-        del w
+        w = ((randn(g, vocab, d) * 0.02).to(bf16).T if tied
+             else (randn(g, d, vocab) * d ** -0.5).to(bf16))
+        cases += [bk.unembed(randn(g, m, d, dtype=bf16), w, label=label) for m in ms]
+    rows = bk.measure(cases)
+    del cases
     torch.cuda.empty_cache()
-    report_rows(rows)
-    print(f"unembed: {len(rows)} kernel rows held")
     return rows
 
 
@@ -1213,94 +548,51 @@ ROPE_SHAPES = (("qwen2.5-7b q", 28, 128, 128, 0, 1e6), ("qwen2.5-7b k", 4, 128, 
                ("kimi-k2 k_pe", None, 64, 576, 512, 5e4))
 
 
-def norm_rope_kernel_checks(torch, ref, kernels, batch=8, seq=2048):
+def norm_rope_kernel_checks(batch=8, seq=2048):
     """Phase 3, the RMSNorm and RoPE kernels (``rms_norm_sm90``,
     ``rope_sm90``) at the admit cells' widest batch, bf16, views read in
-    place as the models pass them (``NORM_SHAPES``, ``ROPE_SHAPES``): every
-    element within one bf16 step of the plain version on the card and at
-    least 99% bit-identical (``tests/test_torch_norm_rope.py`` holds the
-    same at more widths, and against fp64), a second call bit-identical,
-    one launch a call. Timed beside the plain version and, for the norm,
-    ``F.rms_norm`` with the gain 1 + scale (the library yardstick, never
-    used by the port; no single PyTorch call rotates); bound: x read once
-    and the output written once (with the scale, or the angles once a
-    token), at 3.35 TB/s."""
-    import torch.nn.functional as F
-
+    place as the models pass them (``NORM_SHAPES``, ``ROPE_SHAPES``), x
+    unit normal x 2, the norm's scale x 0.1 (``tests/test_torch_norm_rope.py``
+    holds the same criterion at more widths, and against fp64)."""
     from repro_torch.models.rope import rope_angles
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(29)
-    bf16 = torch.bfloat16
-
-    def held(name, shape, got, again, plain, n0):
-        steps = (got.view(torch.int16).int() - plain.view(torch.int16).int()).abs()
-        same = float((steps == 0).double().mean())
-        print(f"{name} {shape}: bit-identical {100 * same:.4f}%, max steps {int(steps.max())}")
-        check(kernels[name].launches - n0 == 2, f"{name} {shape}: {kernels[name].launches - n0} "
-              f"launches for two calls")
-        check(torch.equal(got, again), f"{name} {shape}: two calls differ")
-        check(int(steps.max()) <= 1 and same >= 0.99,
-              f"{name} {shape}: {same:.4f} bit-identical, max {int(steps.max())} steps")
-        return max_err(torch, got, plain)
-
-    rows = []
+    g = torch.Generator(device="cuda").manual_seed(29)
+    cases = []
     for label, lead, d, stored in NORM_SHAPES:
-        x = (torch.randn(batch * seq, *lead, stored, generator=g, device=dev) * 2).to(bf16)
-        x = x[..., :d]
-        scale = (torch.randn(d, generator=g, device=dev) * 0.1).to(bf16)
-        shape = f"{batch}x{seq} rows x {lead[0]} heads of {d}" if lead else \
-            f"{batch}x{seq} rows of {d}" + (f" (stride {stored})" if stored != d else "")
-        shape += f" ({label})"
-        n0 = kernels["rms_norm"].launches
-        got = kernels["rms_norm"](x, scale, 1e-6)
-        again = kernels["rms_norm"](x, scale, 1e-6)
-        err = held("rms_norm", shape, got, again, ref.rms_norm_ref(x, scale, 1e-6), n0)
-        gain = 1.0 + scale
-        call = lambda: kernels["rms_norm"](x, scale, 1e-6)
-        lib = lambda: F.rms_norm(x, (d,), gain, 1e-6)
-        nbytes = 2 * (2 * x.numel() + d)
-        b_ms, b_by = bound(nbytes, 0, BF16_FLOPS)
-        rows.append({"name": "rms_norm", "shape": shape, "max_abs_err": err,
-                     "ms": time_ms(call), "device_ms": device_time_ms(call),
-                     "plain_ms": time_ms(lambda: ref.rms_norm_ref(x, scale, 1e-6)),
-                     "library_ms": time_ms(lib), "library_device_ms": device_time_ms(lib),
-                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": 0})
-        del x, got, again
+        x = (randn(g, batch * seq, *lead, stored) * 2).to(bf16)[..., :d]
+        shape = (f"{batch}x{seq} rows x {lead[0]} heads of {d}" if lead else
+                 f"{batch}x{seq} rows of {d}" + (f" (stride {stored})" if stored != d else ""))
+        cases.append(bk.rms_norm(x, (randn(g, d) * 0.1).to(bf16), 1e-6,
+                                 shape=f"{shape} ({label})"))
+    pos = (torch.arange(seq, device="cuda") + 250)[None].expand(batch, seq)
     for label, H, hd, stored, lo, theta in ROPE_SHAPES:
-        if H is None:
-            x = torch.randn(batch, seq, stored, generator=g, device=dev).to(bf16)[..., None, lo:]
-        else:
-            x = torch.randn(batch, seq, H, stored, generator=g, device=dev).to(bf16)[..., lo:]
-        pos = (torch.arange(seq, device=dev) + 250)[None].expand(batch, seq)
-        angles = rope_angles(pos, hd, theta)
-        shape = f"B={batch} S={seq} H={x.shape[2]} hd={hd}" + (
-            f" of {stored}" if stored != hd else "") + f" ({label})"
-        n0 = kernels["rope"].launches
-        got = kernels["rope"](x, angles)
-        again = kernels["rope"](x, angles)
-        err = held("rope", shape, got, again, ref.rope_ref(x, angles), n0)
-        call = lambda: kernels["rope"](x, angles)
-        nbytes = 2 * 2 * x.numel() + 4 * angles.numel()
-        b_ms, b_by = bound(nbytes, 0, BF16_FLOPS)
-        rows.append({"name": "rope", "shape": shape, "max_abs_err": err,
-                     "ms": time_ms(call), "device_ms": device_time_ms(call),
-                     "plain_ms": time_ms(lambda: ref.rope_ref(x, angles)),
-                     "library_ms": None, "library_device_ms": None,
-                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": 0})
-        del x, got, again
+        x = (randn(g, batch, seq, stored, dtype=bf16)[..., None, lo:] if H is None
+             else randn(g, batch, seq, H, stored, dtype=bf16)[..., lo:])
+        cases.append(bk.rope(x, rope_angles(pos, hd, theta), label=label))
+    rows = bk.measure(cases)
+    del cases
     torch.cuda.empty_cache()
-    report_rows(rows)
-    print(f"rms_norm, rope: {len(rows)} kernel rows held")
     return rows
 
 
-# the kernels that replace no TPU kernel (the reference's bench has no row of
-# them)
-UNPORTED = ("unembed", "rms_norm", "rope")
+# each kernel of _build.KERNEL_SOURCES (its source csrc/<name>.cu): the JAX
+# code it replaces, a TPU kernel under src/repro/kernels/ or, where the
+# reference has none, its plain jnp (the reference's kernel bench has rows of
+# the TPU kernels only)
+REPLACES = {"prod_head": "src/repro/kernels/prod_head.py:61",
+            "flash_attention": "src/repro/kernels/flash_attention.py:69",
+            "decode_attention": "src/repro/kernels/decode_attention.py:64",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:61",
+            "unembed": "src/repro/models/layers.py:135-138",
+            "rms_norm": "src/repro/models/layers.py:83-88",
+            "rope": "src/repro/models/rope.py:49-56"}
 
 
-def run_phase(torch, counters):
+def ports_tpu_kernel(name: str) -> bool:
+    return REPLACES[name].startswith("src/repro/kernels/")
+
+
+def run_phase(counters):
     """Phase 3b: the benchmark runner (``launch/run.py``) in this process on
     its ``kernels`` and ``theory`` entries, its CSV rows printed. The
     counts are set to 0 before it and read after: each kernel is launched 23
@@ -1310,7 +602,7 @@ def run_phase(torch, counters):
     (it raises outside the tolerance) and times it, its plain version 3
     times, beside the library call; these launches are not counted. Returns
     the launches and measure's rows."""
-    from repro_torch.launch import bench_kernels, run
+    from repro_torch.launch import run
 
     for c in counters.values():
         c.launches = 0
@@ -1324,14 +616,14 @@ def run_phase(torch, counters):
               n != "theory_lemma3_worst_ratio"}
     check(len(theory) == 4 and all(str(v) == "True" for v in theory.values()),
           f"run: theory booleans {theory}, the reference's are all True")
-    rows = bench_kernels.measure()
+    rows = bk.measure(bk.cases())
     # the reference's kernel bench times the four TPU kernels; the unembed,
     # the norm and the rotation, which replace none, are not among them and
     # must not launch here
-    ported = sorted(k for k in counters if k not in UNPORTED)
+    ported = sorted(k for k in counters if ports_tpu_kernel(k))
     check(sorted(r["name"] for r in rows) == ported,
           f"run: measure gave the kernels {[r['name'] for r in rows]}")
-    for k in UNPORTED:
+    for k in (k for k in counters if not ports_tpu_kernel(k)):
         check(launches[k] == 0, f"run: {k} launched off its path")
     for r in rows:
         check(r["row"] in values, f"run: no {r['row']} row")
@@ -1434,8 +726,6 @@ def model_bounds(cfg, kinds, n_params: int, B: int, Sp: int, cache_len: int,
 def served_prompts(vocab: int):
     """The serve phases' traffic: 8 prompts of 256-512 random tokens,
     right-padded to 512."""
-    import numpy as np
-
     rng = np.random.default_rng(0)
     plens = np.array([512, 300, 257, 480, 399, 511, 266, 448])
     prompts = np.zeros((len(plens), 512), np.int64)
@@ -1478,8 +768,6 @@ def report_routing(name: str, prefill_calls, step_calls, plens, Sp: int):
     them, those of real tokens: the rest are pads, which route too), and
     the experts no pair went to; at the decode step, the distinct experts
     routed. Returns the experts the step routed to, summed over layers."""
-    import numpy as np
-
     real = (np.arange(len(plens) * Sp) % Sp) < np.repeat(plens, Sp)
     for i, c in enumerate(prefill_calls):
         dropped = c["dropped"].numpy()
@@ -1496,12 +784,10 @@ def report_routing(name: str, prefill_calls, step_calls, plens, Sp: int):
     return sum(routed)
 
 
-def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, profile: bool,
+def serve(counters, name: str, r: int, kernels_on_path, sweep: bool, profile: bool,
           depth=None):
     """Phase 4 for one model: the port's main path at full width, at full
     depth or cut to ``depth`` layers."""
-    import numpy as np
-
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import fit_and_predict
     from repro_torch.models.model_zoo import build_model
@@ -1576,7 +862,7 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
           f"{out['noise_radius']:.3f} final soft-CE {out['final_loss']:.4f}")
     print(f"serve {name}: launches on the main path {json.dumps(launches)}; expected with "
           f"every row at max_new {json.dumps({k: expect[k] for k in kernels_on_path})}")
-    head_checks(torch, counters["prod_head"], out["predictor"],
+    head_checks(counters["prod_head"], out["predictor"],
                 torch.as_tensor(phi[B // 2:], dtype=torch.float32, device=dev), sweep=sweep)
 
     # per-call breakdown of one prefill and one decode step (not counted)
@@ -1599,7 +885,7 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
               f"(B={B}, Sc={Sp + max_new}) {step_ms:.2f} ms, bound {bytes_ms:.3f} ms "
               f"({step_bytes / 1e9:.2f} GB)")
         if name == "llama3-8b":
-            mesh_checks(torch, model, params_bytes, cache_bytes, B, Sp, Sp + max_new, flops)
+            mesh_checks(model, params_bytes, cache_bytes, B, Sp, Sp + max_new, flops)
         if cfg.family == "moe":
             with routing(moe) as pre:
                 prefill()
@@ -1617,14 +903,14 @@ def serve(torch, counters, name: str, r: int, kernels_on_path, sweep: bool, prof
                   f"over the capacity slots {slot_flops / 1e12:.2f} TFLOP, "
                   f"{slot_flops / pair_flops:.4f}x the routed pairs' {pair_flops / 1e12:.2f}")
         if profile:
-            device_profile(torch, prefill, f"{name} prefill")
-            device_profile(torch, step, f"{name} decode step")
+            device_profile(prefill, f"{name} prefill")
+            device_profile(step, f"{name} decode step")
     print(f"serve {name}: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"(max_memory_allocated; weights {2 * n_params / 1e9:.2f} GB)")
     return launches
 
 
-def cdf_at(torch, v, p64, edges):
+def cdf_at(v, p64, edges):
     """F(v) of the fp64 histogram p64 (B, K) over ``edges``, linear within a
     bin (the decode's own model): the CDF level that quantile value v has."""
     e = edges.double()
@@ -1635,7 +921,7 @@ def cdf_at(torch, v, p64, edges):
     return torch.gather(prev, -1, k) + torch.gather(p64, -1, k) * t
 
 
-def hold_quantiles(torch, label, quants, q_ref, levels, p64, edges):
+def hold_quantiles(label, quants, q_ref, levels, p64, edges):
     """The head's quantiles against the plain version's at its tolerance
     (rtol 1e-4, atol 1e-3). Where a log-spaced bin is ~940 tokens wide and
     the bin a level crosses holds a mass p_k of a few 1e-4 or less, the
@@ -1652,14 +938,14 @@ def hold_quantiles(torch, label, quants, q_ref, levels, p64, edges):
     if not n_miss:
         return
     lv = levels.double()[None].expand_as(q_ref)
-    k_err = (cdf_at(torch, quants, p64, edges) - lv).abs()[miss]
-    p_err = (cdf_at(torch, q_ref, p64, edges) - lv).abs()[miss]
+    k_err = (cdf_at(quants, p64, edges) - lv).abs()[miss]
+    p_err = (cdf_at(q_ref, p64, edges) - lv).abs()[miss]
     e = edges.double()
     kk = (torch.searchsorted(e, q_ref.double().contiguous(), right=True) - 1).clamp(
         0, p64.shape[-1] - 1)
     mass = torch.gather(p64, -1, kk)[miss]
     print(f"prod_head {label}: {n_miss} of {q_ref.numel()} quantiles off the plain version's "
-          f"by more than rtol 1e-4/atol 1e-3 (max {max_err(torch, quants, q_ref):.4g} tokens, "
+          f"by more than rtol 1e-4/atol 1e-3 (max {max_err(quants, q_ref):.4g} tokens, "
           f"crossing-bin mass {float(mass.min()):.3g}-{float(mass.max()):.3g}); in the CDF "
           f"under the fp64 head, kernel {float(k_err.max()):.3g}, plain {float(p_err.max()):.3g}")
     check(n_miss <= 0.01 * q_ref.numel() and float(k_err.max()) <= 2e-6,
@@ -1667,7 +953,7 @@ def hold_quantiles(torch, label, quants, q_ref, levels, p64, edges):
           f"{float(k_err.max()):.3g}")
 
 
-def head_fp64(torch, phi, w1, b1, w2, b2):
+def head_fp64(phi, w1, b1, w2, b2):
     """Logits and probs of the head in fp64: the exact answer that both fp32
     versions approximate."""
     f64 = torch.float64
@@ -1676,7 +962,7 @@ def head_fp64(torch, phi, w1, b1, w2, b2):
     return logits, torch.softmax(logits, dim=-1)
 
 
-def head_checks(torch, prod_head, pred, phi, sweep: bool) -> None:
+def head_checks(prod_head, pred, phi, sweep: bool) -> None:
     """The head kernel against its plain version as the serve phase calls it:
     the trained weights, the served phi of the held-out half (B = n // 2 = 4
     rows, d of the served model), the median form (qs=None) and the quantile
@@ -1684,12 +970,10 @@ def head_checks(torch, prod_head, pred, phi, sweep: bool) -> None:
     and outside the main path, how the disagreement grows with the logit
     scale at d=4096: synthetic weights with std c / sqrt(fan_in), each
     version held against the fp64 head."""
-    from repro_torch.kernels import ref
-
     dev = phi.device
     p = pred.params
     args = (phi, p["w1"], p["b1"], p["w2"], p["b2"], pred.edges)
-    logits, p64 = head_fp64(torch, *args[:5])
+    logits, p64 = head_fp64(*args[:5])
     for qs in (None, (0.5, 0.9)):
         levels = torch.tensor([0.5] if qs is None else qs, device=dev)
         probs, quants = prod_head(*args, levels)
@@ -1700,14 +984,14 @@ def head_checks(torch, prod_head, pred, phi, sweep: bool) -> None:
         print(f"head check, trained weights, served phi B={phi.shape[0]} d={phi.shape[1]} "
               f"{form}: logit std "
               f"{float(logits.std()):.4g}, max |logit| {float(logits.abs().max()):.4g}; probs "
-              f"max|kernel-plain| {max_err(torch, probs, p_ref):.3g}, |kernel-fp64| "
-              f"{max_err(torch, probs, p64):.3g}, |plain-fp64| {max_err(torch, p_ref, p64):.3g}; "
-              f"quantiles max|kernel-plain| {max_err(torch, quants, q_ref):.3g}")
+              f"max|kernel-plain| {max_err(probs, p_ref):.3g}, |kernel-fp64| "
+              f"{max_err(probs, p64):.3g}, |plain-fp64| {max_err(p_ref, p64):.3g}; "
+              f"quantiles max|kernel-plain| {max_err(quants, q_ref):.3g}")
         check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
-              f"prod_head probs, trained weights, {form}: max err {max_err(torch, probs, p_ref)}")
+              f"prod_head probs, trained weights, {form}: max err {max_err(probs, p_ref)}")
         check(torch.allclose(quants, q_ref, rtol=1e-4, atol=1e-3),
               f"prod_head quantiles, trained weights, {form}: max err "
-              f"{max_err(torch, quants, q_ref)}")
+              f"{max_err(quants, q_ref)}")
     if not sweep:
         return
 
@@ -1724,15 +1008,15 @@ def head_checks(torch, prod_head, pred, phi, sweep: bool) -> None:
         sw = (x, w1 * (c / d ** 0.5), b1, w2 * (c / hidden ** 0.5), b2)
         probs, _ = prod_head(*sw, edges, levels)
         p_ref, _ = ref.prod_head_ref(*sw, edges)
-        logits, p64 = head_fp64(torch, *sw)
+        logits, p64 = head_fp64(*sw)
         ok = torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6)
         print(f"head logit-scale sweep c={c:.4g}: logit std {float(logits.std()):.4g}; probs "
-              f"max|kernel-plain| {max_err(torch, probs, p_ref):.3g}, |kernel-fp64| "
-              f"{max_err(torch, probs, p64):.3g}, |plain-fp64| {max_err(torch, p_ref, p64):.3g}; "
+              f"max|kernel-plain| {max_err(probs, p_ref):.3g}, |kernel-fp64| "
+              f"{max_err(probs, p64):.3g}, |plain-fp64| {max_err(p_ref, p64):.3g}; "
               f"within rtol 1e-5/atol 1e-6 of plain: {ok}")
 
 
-def _counted(torch, counters, what, fn, expect):
+def _counted(counters, what, fn, expect):
     """Run ``fn`` with the launch counts set to 0 just before and read just
     after: prod_head must have launched ``expect`` times and no other kernel
     at all. Returns (fn's result, launches, wall seconds)."""
@@ -1764,7 +1048,7 @@ TABLE1_REF_AVG = {"constant_median": (182.40, 147.05), "s3": (164.14, 138.33),
                   "egtp": (197.53, 143.27), "prod_m": (76.74, 62.79), "prod_d": (73.10, 60.19)}
 
 
-def table1_phase(torch, counters):
+def table1_phase(counters):
     """Phase 5: the port's Table 1, fast profile (8 settings x 7 methods,
     every method training the shared head on the card; ProD-M and ProD-D
     decode the median through the head kernel on train and test phi). The
@@ -1773,7 +1057,7 @@ def table1_phase(torch, counters):
     from repro_torch.launch import table1
 
     # ProD-M and ProD-D predict train and test phi once each through the head, per setting
-    out, launches, _ = _counted(torch, counters, "table1",
+    out, launches, _ = _counted(counters, "table1",
                                 lambda: table1.run(fast=True, seed=0, verbose=True,
                                                    device="cuda"), 2 * 2 * 8)
     rows = out["rows"]
@@ -1783,9 +1067,9 @@ def table1_phase(torch, counters):
     print("table1: per-backbone average test MAE, port on the card [reference, difference]:")
     for method, ref_avg in TABLE1_REF_AVG.items():
         print(f"  {method:16s}" + "".join(
-            f"  {model} {out['avg'][(method, model, 'avg')]:8.2f} [{ref:.2f}, "
-            f"{100 * (out['avg'][(method, model, 'avg')] / ref - 1):+.2f}%]"
-            for model, ref in zip(("qwen", "llama"), ref_avg)))
+            f"  {model} {out['avg'][(method, model, 'avg')]:8.2f} [{want:.2f}, "
+            f"{100 * (out['avg'][(method, model, 'avg')] / want - 1):+.2f}%]"
+            for model, want in zip(("qwen", "llama"), ref_avg)))
     checks = out["checks"]
     print(f"table1: claims {json.dumps(checks)} (reference: {json.dumps(TABLE1_REF_CHECKS)}, "
           f"prod_beats_trail_last_pct {TABLE1_REF_PCT})")
@@ -1804,20 +1088,20 @@ def table1_phase(torch, counters):
     edges = bins.make_edges(pcfg.n_bins, pcfg.bin_max, device="cuda")
     tgt = targets.dist_target(torch.as_tensor(data.len_train, dtype=torch.float32,
                                               device="cuda"), edges)
-    device_profile(torch, lambda: train_predictor(0, data.phi_train["last"], tgt, pcfg, edges,
+    device_profile(lambda: train_predictor(0, data.phi_train["last"], tgt, pcfg, edges,
                                                   device="cuda"),
                    "table1: one ProD-D fit (400 AdamW steps)")
     return launches, rows
 
 
-def sim_phase(torch, counters):
+def sim_phase(counters):
     """Phase 6: `--mode sim` with the reference's defaults (qwen/chat, 200
     requests, n_train 800, 20 epochs, 32 slots, KV budget 40,000, max_seq
     4096, arrival rate 2.0): a ProD-D head trained on the card, then four
     SimEngine policy runs, each annotating its 200 requests through the head."""
     from repro_torch.launch import serve as serve_launcher
 
-    rows, launches, _ = _counted(torch, counters, "sim",
+    rows, launches, _ = _counted(counters, "sim",
                                  lambda: serve_launcher.main(["--mode", "sim", "--device", "cuda"]),
                                  4)
     by = {r["policy"]: r for r in rows}
@@ -1885,7 +1169,7 @@ def _same_booleans(what, checks, want):
         check(checks[k] == v, f"{what}: {k} is {checks[k]}, the reference's is {v}")
 
 
-def ablations_phase(torch, counters, t1_rows):
+def ablations_phase(counters, t1_rows):
     """The paper's ablations on the card at the fast profile: the bins
     ablation (12 fits, one median through the head each), Figure 2 (4
     scenarios x (10 ProD-M + 8 ProD-D) medians through the head; TRAIL-last's
@@ -1895,7 +1179,6 @@ def ablations_phase(torch, counters, t1_rows):
     phase. Each part's validate booleans must equal the reference's. Then the
     kernel is held against its plain version on the bins ablation's 12
     trained heads and test phi (K = 16, 64, 128, linear and log edges)."""
-    from repro_torch.kernels import ref
     from repro_torch.launch import bench_bins_ablation, bench_fig2, bench_table23
     from repro_torch.launch.table1 import all_settings
 
@@ -1911,7 +1194,7 @@ def ablations_phase(torch, counters, t1_rows):
 
     bench_bins_ablation.train_predictor = keeping
     try:
-        out, launches, _ = _counted(torch, counters, "ablations: bins",
+        out, launches, _ = _counted(counters, "ablations: bins",
                                     lambda: bench_bins_ablation.run(fast=True, seed=0,
                                                                     device="cuda"), 12)
     finally:
@@ -1927,7 +1210,7 @@ def ablations_phase(torch, counters, t1_rows):
     _same_booleans("ablations: bins", checks, ABLATION_REF_CHECKS["bins"])
 
     # Figure 2
-    out, launches, _ = _counted(torch, counters, "ablations: fig2",
+    out, launches, _ = _counted(counters, "ablations: fig2",
                                 lambda: bench_fig2.run(fast=True, seed=0, device="cuda"), 72)
     for k in total:
         total[k] += launches[k]
@@ -1947,7 +1230,7 @@ def ablations_phase(torch, counters, t1_rows):
                                           device="cuda")
         return t23
 
-    t23, launches, _ = _counted(torch, counters, "ablations: table23 (qwen/math, qwen/chat)",
+    t23, launches, _ = _counted(counters, "ablations: table23 (qwen/math, qwen/chat)",
                                 table23, 2 * 2 * 2)
     for k in total:
         total[k] += launches[k]
@@ -1976,12 +1259,12 @@ def ablations_phase(torch, counters, t1_rows):
         K = pred.edges.shape[0] - 1
         label = f"{'/'.join(scen)} K={K} {pred.pcfg.bin_spacing} trained"
         check(torch.allclose(probs, p_ref, rtol=1e-5, atol=1e-6),
-              f"prod_head probs {label}: max err {max_err(torch, probs, p_ref)}")
-        hold_quantiles(torch, label, med, m_ref, levels, head_fp64(torch, *args[:5])[1],
+              f"prod_head probs {label}: max err {max_err(probs, p_ref)}")
+        hold_quantiles(label, med, m_ref, levels, head_fp64(*args[:5])[1],
                        pred.edges)
         check(torch.equal(probs, again[0]) and torch.equal(med, again[1]),
               f"prod_head {label}: two calls differ")
-        worst = max(worst, max_err(torch, probs, p_ref))
+        worst = max(worst, max_err(probs, p_ref))
     print(f"ablations: the kernel on the {len(heads)} trained heads of the bins ablation, "
           f"probs within {worst:.3g} of the plain version, second calls bit-identical")
     return total
@@ -1996,7 +1279,7 @@ SINGLE_REF_NUMBERS = {"prod_latency_gain_pct": 76.14, "prod_throughput_gain_pct"
                       "srtf_preemptions": 15}
 
 
-def single_phase(torch, counters):
+def single_phase(counters):
     """The serving benchmark's single-replica track on the card: a ProD-D
     head trained there on qwen/chat, then six ``SimEngine`` policy runs over
     250 requests, each predicting its medians in one head call (6 launches,
@@ -2005,7 +1288,7 @@ def single_phase(torch, counters):
     from repro_torch.launch import bench_serving as bench
 
     (rows, checks), launches, _ = _counted(
-        torch, counters, "single",
+        counters, "single",
         lambda: bench.run_table("single", seed=0, device="cuda"), len(bench.POLICIES))
     for r in rows:
         print(f"  {r['policy']:24s} mean latency {r['mean_latency']:.1f} p90 "
@@ -2050,7 +1333,7 @@ CLUSTER_REF_NUMBERS = {
 }
 
 
-def cluster_phase(torch, counters):
+def cluster_phase(counters):
     """Phase 7: the cluster tables with the head in the loop, at 8,000
     requests on the card, each stamped to ``STAMP`` under the reference's
     key as it finishes. Returns the launches of the three tables and, per
@@ -2111,7 +1394,7 @@ def cluster_phase(torch, counters):
     reqs = make_trace(cfg)
     head = fit_trace_head(cfg, n_train=4000, r=16, seed=7, device="cuda")
     pol = Policy("fcfs", "quantile", quantile=0.9, max_seq_len=4096)
-    device_profile(torch, lambda: Cluster.uniform(4, 32, 8 * (256 + 4096), pol, router="psq",
+    device_profile(lambda: Cluster.uniform(4, 32, 8 * (256 + 4096), pol, router="psq",
                                                   predictor=PredictorService(head, window=16.0))
                    .run(reqs), "cluster: one trained-prod-d replay (8,000 requests)")
     return total, stamped
@@ -2191,7 +1474,7 @@ def train_bounds(cfg, kinds, n_params: int, B: int, S: int):
     return flops, flops / FP32_FLOPS * 1e3, opt_bytes, opt_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def timed_steps(torch, counters, step_fn, state, it, steps: int):
+def timed_steps(counters, step_fn, state, it, steps: int):
     """``steps`` train steps, each on the next batch of ``it`` and timed on
     the host clock between synchronisations, the launch counts set to 0
     before them and read after. Returns (state, the first batch, losses,
@@ -2212,7 +1495,7 @@ def timed_steps(torch, counters, step_fn, state, it, steps: int):
     return state, first, losses, norms, walls, {k: c.launches for k, c in counters.items()}
 
 
-def train_phase(torch, counters):
+def train_phase(counters):
     """Phase 8: the trainer at Llama-3-8B's published widths (d=4096, 32/8
     heads, hd 128, d_ff 14336, vocab 128256, untied), depth cut to 2 layers,
     fp32 as the reference's launcher trains: 5 AdamW steps (cosine
@@ -2251,7 +1534,7 @@ def train_phase(torch, counters):
     print(f"train: Llama-3-8B widths, {cfg.n_layers} layers, fp32: {n_params / 1e9:.4f}B "
           f"params, initialised with AdamW state in {time.perf_counter() - t0:.1f} s")
     step_fn = make_train_step(model, tcfg)
-    state, _, losses, _, walls, launches = timed_steps(torch, counters, step_fn, state, it,
+    state, _, losses, _, walls, launches = timed_steps(counters, step_fn, state, it,
                                                        steps)
     peak = torch.cuda.max_memory_allocated() / 1e9
     flops, flops_ms, opt_bytes, bytes_ms = train_bounds(cfg, layer_kinds(cfg), n_params, B, S)
@@ -2297,7 +1580,7 @@ def train_phase(torch, counters):
           f"({err / scale:.3g} of it; tolerance 1e-3)")
     check(err <= 1e-3 * scale, "train: prefill logits differ from the training forward's")
     # where a step's time goes (two more steps, not counted)
-    device_profile(torch, lambda: step_fn(state, batch), "train: one AdamW step")
+    device_profile(lambda: step_fn(state, batch), "train: one AdamW step")
     return launches
 
 
@@ -2312,7 +1595,7 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ssm_train_phase(torch, counters):
+def ssm_train_phase(counters):
     """Phase 8b: the trainer on the SSM and hybrid models at full width and
     depth, fp32 as the reference's launcher trains: Mamba2-130M (24 layers,
     d=768, 24 scan heads of 64, state 128, tied 50,280-token vocabulary) on
@@ -2336,8 +1619,6 @@ def ssm_train_phase(torch, counters):
     scaling. Step wall times against ``train_bounds``, the peak memory and
     one profiled step are printed. Returns the prefills'
     launches (the train path's are all 0)."""
-    import numpy as np
-
     from repro_torch.common.config import TrainConfig
     from repro_torch.common.pytree import tree_size
     from repro_torch.configs import get_config
@@ -2374,7 +1655,7 @@ def ssm_train_phase(torch, counters):
               f"chunk {cfg.ssm_chunk}: {n_params / 1e9:.4f}B params, initialised with AdamW "
               f"state in {time.perf_counter() - t0:.1f} s")
         step_fn = make_train_step(model, tcfg)
-        state, first, losses, norms, walls, launches = timed_steps(torch, counters, step_fn,
+        state, first, losses, norms, walls, launches = timed_steps(counters, step_fn,
                                                                    state, it, steps)
         with torch.no_grad():
             again = float(model.loss(state.params, first)[1]["loss"])
@@ -2424,14 +1705,14 @@ def ssm_train_phase(torch, counters):
                   f"prefill, expected {expect.get(k, 0)}")
             prefill_launches[k] += c
         batch = next(it)
-        device_profile(torch, lambda: step_fn(state, batch), f"ssm train {name}: one AdamW step")
+        device_profile(lambda: step_fn(state, batch), f"ssm train {name}: one AdamW step")
         del state, params, step_fn, want, got
         gc.collect()
         torch.cuda.empty_cache()
     return prefill_launches
 
 
-def int8_kv_phase(torch, counters):
+def int8_kv_phase(counters):
     """Phase 8c: the int8 KV cache (``Model.init_cache(kv_quant=True)``) on
     Llama-3-8B at full width and depth, bf16, B=8, 576 slots: 128 teacher-
     forced tokens through ``decode_step`` from an empty cache, once into the
@@ -2448,8 +1729,6 @@ def int8_kv_phase(torch, counters):
     two caches' step times (CUDA events, eager), the dequantization's share
     of the int8 step and one profiled step of each are printed. Returns the
     launches of the 256 steps."""
-    import numpy as np
-
     from repro_torch.common.pytree import tree_bytes
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
@@ -2528,17 +1807,15 @@ def int8_kv_phase(torch, counters):
               f"dequantizations take {deq_ms:.2f} ms ({100 * deq_ms / step_ms['int8']:.1f}%; "
               f"CUDA events, eager) ({card})")
         for k, f in steps.items():
-            device_profile(torch, f, f"int8 kv: one decode step on the {k} cache")
+            device_profile(f, f"int8 kv: one decode step on the {k} cache")
     del params, caches
     return launches
 
 
-def per_step_errors(torch, model, params, out, prompts, plens):
+def per_step_errors(model, params, out, prompts, plens):
     """Relative L2 error of each valid per-step state of ``out`` (a
     ``generate(..., collect_per_step=True)``) against the flash prefill's
     hidden state at its position in prompt + generated tokens."""
-    import numpy as np
-
     dev = torch.device("cuda")
     sh, sv = out["step_hidden"], out["step_valid"]
     B, max_new = sv.shape
@@ -2560,11 +1837,9 @@ def per_step_errors(torch, model, params, out, prompts, plens):
     return np.concatenate(rel)
 
 
-def one_ulp_spread(torch, model, params, prompts, plens):
+def one_ulp_spread(model, params, prompts, plens):
     """Relative L2 change of the prefill's hidden state at every valid
     prompt position when every embedding entry moves to its next float."""
-    import numpy as np
-
     dev = torch.device("cuda")
     tok = torch.as_tensor(prompts, device=dev)
     valid = (torch.arange(tok.shape[1], device=dev)[None, :]
@@ -2580,7 +1855,7 @@ def one_ulp_spread(torch, model, params, prompts, plens):
     return np.concatenate(rel)
 
 
-def sharp_score_witness(torch, ref, kernels, cfg, params, prompts, plens):
+def sharp_score_witness(kernels, cfg, params, prompts, plens):
     """Layer 0 of the served bf16 model at its init scales: q, k, v of the
     prompts as the prefill computes them in bf16, and again in fp32 from the
     same weights. Prints each (row, head, query)'s score spread over its
@@ -2661,11 +1936,11 @@ def sharp_score_witness(torch, ref, kernels, cfg, params, prompts, plens):
     for name, (out, want, exact) in got.items():
         e_k, e_p = (out.double() - exact).abs(), (want.double() - exact).abs()
         o_s, w_s = scaled[name]
-        e_s = max_err(torch, o_s, w_s)
+        e_s = max_err(o_s, w_s)
         print(f"  {name}: against fp64, kernel max|err| {float(e_k.max()):.4g} mean "
               f"{float(e_k.mean()):.4g}, plain version max|err| {float(e_p.max()):.4g} mean "
               f"{float(e_p.mean()):.4g} (max|out| {float(exact.abs().max()):.4g}); kernel "
-              f"against the plain version {max_err(torch, out, want):.4g}, with v x 2^-{shift} "
+              f"against the plain version {max_err(out, want):.4g}, with v x 2^-{shift} "
               f"{e_s:.3g} (tolerance 2e-2)")
         check(float(e_k.mean()) <= 1.25 * float(e_p.mean()),
               f"online (b) witness: {name} at sharp scores further from fp64 than its plain "
@@ -2681,7 +1956,7 @@ ONLINE_REF = {"online_error_shrinks_with_progress": True, "online_beats_static_r
               "online_avg_mae": 16.94, "static_avg_mae": 20.91}
 
 
-def online_phase(torch, ref, counters):
+def online_phase(counters):
     """Phase 9: ProD-O on real generations.
     (a) ``launch/bench_online.py``'s run at seed 0 on the card (tiny-lm
     trained 150 steps, 48 prompts x 80 tokens with per-step states, a static
@@ -2701,8 +1976,6 @@ def online_phase(torch, ref, counters):
     and wk scaled by 0.1; and in fp32 at the init scales, at depth 1, 4, 8,
     16 and 32, held within the prefill's own spread under one ulp of its
     input (``one_ulp_spread``) and, at depth 1, within 5e-2."""
-    import numpy as np
-
     from repro_torch.common.config import PredictorConfig
     from repro_torch.configs import get_config
     from repro_torch.core import online
@@ -2785,18 +2058,18 @@ def online_phase(torch, ref, counters):
     # those scores against fp64 and their plain versions; the fp32 depth
     # sweep below. The bf16 model with every wq and wk scaled by 0.1 (scores
     # 100x smaller) is held: a second generation, every state within 5e-2.
-    rel = per_step_errors(torch, model, params, out, prompts, plens)
+    rel = per_step_errors(model, params, out, prompts, plens)
     print(f"online (b): {rel.size} per-step states against the flash prefill at the init "
           f"scales: relative L2 error median {np.median(rel):.3g}, 99th percentile "
           f"{np.quantile(rel, 0.99):.3g}, worst {rel.max():.4g}; within 5e-2: "
           f"{100 * np.mean(rel <= 5e-2):.1f}%")
-    sharp_score_witness(torch, ref, counters, cfg, params, prompts, plens)
+    sharp_score_witness(counters, cfg, params, prompts, plens)
     for lp in params["layers"]:
         lp["attn"]["wq"].mul_(0.1)
         lp["attn"]["wk"].mul_(0.1)
     out = eng.generate(prompts, plens, torch.Generator(device=dev).manual_seed(0),
                        collect_per_step=True)
-    rel = per_step_errors(torch, model, params, out, prompts, plens)
+    rel = per_step_errors(model, params, out, prompts, plens)
     print(f"online (b): {rel.size} per-step states, wq and wk scaled by 0.1: relative L2 "
           f"error median {np.median(rel):.3g}, 99th percentile {np.quantile(rel, 0.99):.3g}, "
           f"worst {rel.max():.4g} (tolerance 5e-2, bf16)")
@@ -2820,8 +2093,8 @@ def online_phase(torch, ref, counters):
         eng = RealEngine(model, params, max_new=max_new)
         out = eng.generate(prompts, plens, torch.Generator(device=dev).manual_seed(0),
                            collect_per_step=True)
-        rel = per_step_errors(torch, model, params, out, prompts, plens)
-        ulp = one_ulp_spread(torch, model, params, prompts, plens)
+        rel = per_step_errors(model, params, out, prompts, plens)
+        ulp = one_ulp_spread(model, params, prompts, plens)
         print(f"online (b): fp32 model at the init scales, depth {depth}: {rel.size} per-step "
               f"states against the prefill, relative L2 median {np.median(rel):.3g}, worst "
               f"{rel.max():.4g}; the prefill under one ulp of its input, {ulp.size} states: "
@@ -2884,7 +2157,7 @@ class capture:
 LONG_LENS = (8960, 8704, 8300, 512)
 
 
-def long_phase(torch, ref, counters):
+def long_phase(counters):
     """Zamba2-1.2B past its 8,192-token window: B=4 prompts of 8,960 / 8,704 /
     8,300 / 512 tokens right-padded to Sp=8,960, max_new=64, one generation.
     The prefill's flash calls run with the window biting at full shape and
@@ -2901,11 +2174,7 @@ def long_phase(torch, ref, counters):
     to |o|, which cancellation can make small. Two planted faults must fail
     that check: the flash kernel without its window, and its output with
     the rows that have no valid key set to 0."""
-    import numpy as np
-    import torch.nn.functional as F
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.transformer import layer_kinds
     from repro_torch.serving.engine import RealEngine
@@ -3012,7 +2281,7 @@ def long_phase(torch, ref, counters):
     err_empty = float((got.float() - want.float()).abs()[empty].max())
     worst, beyond = held(got, want, scale)
     print(f"long: flash B={B} S={Sp} window {W}, v as served (max|v| "
-          f"{float(v.float().abs().max()):.3g}): max|kernel-plain| {max_err(torch, got, want):.3g}"
+          f"{float(v.float().abs().max()):.3g}): max|kernel-plain| {max_err(got, want):.3g}"
           f", on the {n_empty} rows with no valid key {err_empty:.3g} (max|out| there "
           f"{float(want.float().abs()[empty].max()):.3g}); worst error {worst:.3g} of its "
           f"tolerance 2e-2 * sum p|v| (median sum p|v| {float(scale.float().median()):.3g})")
@@ -3049,7 +2318,7 @@ def long_phase(torch, ref, counters):
     b_ms, b_by = bound(nbytes, fl_flops, BF16_FLOPS)
     rows.append({"name": "flash_attention",
                  "shape": f"B={B} S={Sp} H=32 KV=32 hd=64 bf16 causal window={W} ragged (long)",
-                 "max_abs_err": max_err(torch, got, want), "ms": time_ms(call, iters=3),
+                 "max_abs_err": max_err(got, want), "ms": time_ms(call, iters=3),
                  "plain_ms": time_ms(plain, iters=1, warmup=0), "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": lib_ms, "bytes": nbytes, "flops": fl_flops,
                  "device_ms": device_time_ms(call, iters=3),
@@ -3065,7 +2334,7 @@ def long_phase(torch, ref, counters):
     worst, beyond = held(got, want, ref.decode_attention_ref(qd, kc, vc.abs(), dlen))
     torch.cuda.synchronize()
     print(f"long: decode on the rings, lengths {dlen.tolist()}, v as served: max|kernel-plain| "
-          f"{max_err(torch, got, want):.3g}, worst error {worst:.3g} of its tolerance "
+          f"{max_err(got, want):.3g}, worst error {worst:.3g} of its tolerance "
           f"2e-2 * sum p|v|")
     check(beyond == 0, f"long: decode_attention {beyond} elements beyond 2e-2 * sum p|v| "
           f"(worst {worst:.3g} of it)")
@@ -3078,7 +2347,7 @@ def long_phase(torch, ref, counters):
     b_ms, b_by = bound(nbytes, d_flops, BF16_FLOPS)
     rows.append({"name": "decode_attention",
                  "shape": f"B={B} Sc={W} H=32 KV=32 hd=64 bf16 ring lengths {dlen.tolist()} (long)",
-                 "max_abs_err": max_err(torch, got, want),
+                 "max_abs_err": max_err(got, want),
                  "ms": time_ms(call, iters=50), "plain_ms": time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, dlen)),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa, iters=50),
                  "bytes": nbytes, "flops": d_flops,
@@ -3095,17 +2364,17 @@ def long_phase(torch, ref, counters):
     Bs, S_, H, P = sargs[0].shape
     N = sargs[3].shape[-1]
     print(f"long: ssd_scan B={Bs} S={S_} H={H} P={P} N={N}: y max|err| "
-          f"{max_err(torch, y, y_ref):.3g} at max|y| {float(y_ref.float().abs().max()):.4g}; "
-          f"h max|err| {max_err(torch, h, h_ref):.3g} at max|h| {float(h_ref.abs().max()):.4g}")
+          f"{max_err(y, y_ref):.3g} at max|y| {float(y_ref.float().abs().max()):.4g}; "
+          f"h max|err| {max_err(h, h_ref):.3g} at max|h| {float(h_ref.abs().max()):.4g}")
     check(torch.allclose(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2),
-          f"long: ssd_scan y max err {max_err(torch, y, y_ref)}")
+          f"long: ssd_scan y max err {max_err(y, y_ref)}")
     check(torch.allclose(h, h_ref, rtol=2e-4, atol=2e-4),
-          f"long: ssd_scan h max err {max_err(torch, h, h_ref)}")
+          f"long: ssd_scan h max err {max_err(h, h_ref)}")
     nbytes = 2 * 2 * Bs * S_ * H * P + 2 * 4 * Bs * S_ * H + 2 * 2 * Bs * S_ * N + 4 * Bs * H * P * N
     s_flops = ssd_scan_flops(Bs, S_, H, P, N)
     b_ms, b_by = bound(nbytes, s_flops, BF16_FLOPS)
     rows.append({"name": "ssd_scan", "shape": f"B={Bs} S={S_} H={H} P={P} N={N} bf16 (long)",
-                 "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, h, h_ref)),
+                 "max_abs_err": max(max_err(y, y_ref), max_err(h, h_ref)),
                  "ms": time_ms(call, iters=5),
                  "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*sargs), iters=1, warmup=0),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": nbytes,
@@ -3118,7 +2387,7 @@ def long_phase(torch, ref, counters):
 G3_LONG_LENS = (1100, 1030, 960, 900)
 
 
-def gemma3_long_phase(torch, ref, counters):
+def gemma3_long_phase(counters):
     """Gemma3-27B past its 1,024-token window at full width and depth (62
     layers, bf16): 4 prompts of 1,100 / 1,030 / 960 / 900 tokens right-padded
     to 1,100, max_new=32, one generation. The 52 local layers take the
@@ -3129,10 +2398,7 @@ def gemma3_long_phase(torch, ref, counters):
     captured in a second prefill and decode step (not counted) and held
     against their plain versions on V as served, each element within 2e-2
     of sum_k p_k |v_k| (``held``, as ``long_phase``)."""
-    import numpy as np
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.transformer import layer_kinds
     from repro_torch.serving.engine import RealEngine
@@ -3208,12 +2474,12 @@ def gemma3_long_phase(torch, ref, counters):
         kw = fl.calls[i][1]
         check(kw["causal"] and kw["window"] == (W if kind == "local" else 0),
               f"gemma3 long: layer {i} flash causal {kw['causal']} window {kw['window']}")
-        _hold_flash(torch, ref, counters, f"gemma3 long: layer {i} ({kind})", fl.calls[i])
+        _hold_flash(counters, f"gemma3 long: layer {i} ({kind})", fl.calls[i])
         (_, kc, _, dl), _ = dc.calls[i]
         want_len = [min(n + 1, W) if kind == "local" else n + 1 for n in G3_LONG_LENS]
         check(dl.tolist() == want_len and kc.shape[1] == slots[i],
               f"gemma3 long: layer {i} decode lengths {dl.tolist()} on {kc.shape[1]} slots")
-        _hold_decode(torch, ref, counters, f"gemma3 long: layer {i} ({kind})", dc.calls[i])
+        _hold_decode(counters, f"gemma3 long: layer {i} ({kind})", dc.calls[i])
     return launches
 
 
@@ -3246,14 +2512,14 @@ def encdec_bounds(cfg, B: int, plens, cache_len: int, n_keys: int = 0):
     return flops, flops / BF16_FLOPS * 1e3, step_bytes, step_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def _sample(torch, logits, gen, temp: float = 0.8):
+def _sample(logits, gen, temp: float = 0.8):
     """``RealEngine._sample``: a draw from softmax(logits / T) by the
     Gumbel argmax, at the engine's temperature."""
     e = torch.empty_like(logits).exponential_(generator=gen)
     return torch.argmax(logits / temp - torch.log(e), dim=-1)
 
 
-def _hold_flash(torch, ref, counters, label, call):
+def _hold_flash(counters, label, call):
     """A captured flash call against its plain version on its own inputs,
     held on V as served (``held``)."""
     (q, k, v), kw = call
@@ -3262,12 +2528,12 @@ def _hold_flash(torch, ref, counters, label, call):
     worst, beyond = held(got, want, ref.flash_attention_ref(q, k, v.abs(), **kw))
     torch.cuda.synchronize()
     print(f"{label}: flash q {tuple(q.shape)} k {tuple(k.shape)} causal={kw['causal']}: "
-          f"max|kernel-plain| {max_err(torch, got, want):.3g}, worst error {worst:.3g} of its "
+          f"max|kernel-plain| {max_err(got, want):.3g}, worst error {worst:.3g} of its "
           f"tolerance 2e-2 * sum p|v|")
     check(beyond == 0, f"{label}: flash {beyond} elements beyond 2e-2 * sum p|v|")
 
 
-def _hold_decode(torch, ref, counters, label, call):
+def _hold_decode(counters, label, call):
     """A captured decode call, as ``_hold_flash``."""
     (q, kc, vc, dl), _ = call
     got = counters["decode_attention"](q, kc, vc, dl)
@@ -3275,12 +2541,12 @@ def _hold_decode(torch, ref, counters, label, call):
     worst, beyond = held(got, want, ref.decode_attention_ref(q, kc, vc.abs(), dl))
     torch.cuda.synchronize()
     print(f"{label}: decode on {kc.shape[1]} slots, lengths {dl.tolist()}: max|kernel-plain| "
-          f"{max_err(torch, got, want):.3g}, worst error {worst:.3g} of its tolerance "
+          f"{max_err(got, want):.3g}, worst error {worst:.3g} of its tolerance "
           f"2e-2 * sum p|v|")
     check(beyond == 0, f"{label}: decode {beyond} elements beyond 2e-2 * sum p|v|")
 
 
-def whisper_phase(torch, ref, counters):
+def whisper_phase(counters):
     """Whisper-large-v3 at full width and depth (32 encoder + 32 decoder
     layers, d=1280, bf16, seeded random weights), driven through
     ``Model.prefill`` and ``Model.decode_step`` as the reference's own tests
@@ -3299,10 +2565,7 @@ def whisper_phase(torch, ref, counters):
     decoder layer 0's self- and cross-attention and the decode calls of its
     self and cross caches are held against their plain versions on their
     own inputs, on V as served."""
-    import numpy as np
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch.serve import fit_and_predict
     from repro_torch.models.frontend import audio_frame_embeds
     from repro_torch.models.model_zoo import build_model, last_token_hidden
@@ -3350,7 +2613,7 @@ def whisper_phase(torch, ref, counters):
         steps = 0
         for step in range(max_new):
             nxt = torch.where(finished, torch.full_like(lens_t, eos, dtype=torch.long),
-                              _sample(torch, logits, gen))
+                              _sample(logits, gen))
             newly = ~finished & (nxt == eos)
             finished = finished | (nxt == eos)
             gen_len = torch.where(newly, step + 1, gen_len)
@@ -3399,7 +2662,7 @@ def whisper_phase(torch, ref, counters):
     print(f"serve {name}: median {np.round(med, 3).tolist()} q0.9 "
           f"{np.round(quants[:, 1], 3).tolist()} test MAE {out['mae']:.3f} noise radius "
           f"{out['noise_radius']:.3f} final soft-CE {out['final_loss']:.4f}")
-    head_checks(torch, counters["prod_head"], out["predictor"],
+    head_checks(counters["prod_head"], out["predictor"],
                 torch.as_tensor(phi[B // 2:], dtype=torch.float32, device=dev), sweep=False)
 
     nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
@@ -3424,11 +2687,11 @@ def whisper_phase(torch, ref, counters):
               f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP: encoder, cross K/V, decoder and "
               f"attention pairs); decode step (B={B}, Sc={Sp + max_new}, cross {F}) "
               f"{step_ms:.2f} ms, bound {bytes_ms:.3f} ms ({step_bytes / 1e9:.2f} GB)")
-        device_profile(torch, prefill, f"{name} prefill")
-        device_profile(torch, step, f"{name} decode step")
-    _hold_flash(torch, ref, counters, f"{name} encoder layer 0", fl.calls[0])
-    _hold_flash(torch, ref, counters, f"{name} decoder layer 0 self", fl.calls[enc])
-    _hold_flash(torch, ref, counters, f"{name} decoder layer 0 cross", fl.calls[enc + 1])
+        device_profile(prefill, f"{name} prefill")
+        device_profile(step, f"{name} decode step")
+    _hold_flash(counters, f"{name} encoder layer 0", fl.calls[0])
+    _hold_flash(counters, f"{name} decoder layer 0 self", fl.calls[enc])
+    _hold_flash(counters, f"{name} decoder layer 0 cross", fl.calls[enc + 1])
     check(fl.calls[enc + 1][1]["causal"] is False and fl.calls[enc + 1][0][1].shape[1] == F,
           f"{name}: cross-attention call {fl.calls[enc + 1][1]}")
     (_, _, _, self_len), _ = dc.calls[0]
@@ -3436,8 +2699,8 @@ def whisper_phase(torch, ref, counters):
     check(self_len.tolist() == [n + 1 for n in plens.tolist()]
           and cross_len.tolist() == [F] * B and ck.shape[1] == F,
           f"{name}: decode lengths {self_len.tolist()} / {cross_len.tolist()}")
-    _hold_decode(torch, ref, counters, f"{name} decoder layer 0 self", dc.calls[0])
-    _hold_decode(torch, ref, counters, f"{name} decoder layer 0 cross", dc.calls[1])
+    _hold_decode(counters, f"{name} decoder layer 0 self", dc.calls[0])
+    _hold_decode(counters, f"{name} decoder layer 0 cross", dc.calls[1])
     print(f"serve {name}: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"(max_memory_allocated; weights {2 * n_params / 1e9:.2f} GB, cross K/V "
           f"{4 * L * B * F * cfg.n_kv_heads * cfg.head_dim / 1e9:.2f} GB)")
@@ -3447,7 +2710,7 @@ def whisper_phase(torch, ref, counters):
 VLM_PATCHES = 256     # Qwen2-VL's stub image: a 16 x 16 grid of patches
 
 
-def vlm_embeds_phase(torch, ref, counters):
+def vlm_embeds_phase(counters):
     """Qwen2-VL-2B at full width and depth on the embeds path: B=8 rows of
     ``vlm_embeds`` (256 stub patches on a 16 x 16 grid, then text, S=512),
     prefilled with their (3, B, S) M-RoPE positions (the three streams apart
@@ -3461,7 +2724,6 @@ def vlm_embeds_phase(torch, ref, counters):
     are checked: patch i at (0, i // 16, i % 16), the text after them at
     t = h = w = 1, 2, ..."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.frontend import vlm_embeds
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.transformer import layer_kinds
@@ -3492,7 +2754,7 @@ def vlm_embeds_phase(torch, ref, counters):
         del pcache
         at = torch.full((B,), S, dtype=torch.int32, device=dev)
         for t in range(steps):
-            logits, hid = model.decode_step(params, _sample(torch, logits, gen), cache, at + t,
+            logits, hid = model.decode_step(params, _sample(logits, gen), cache, at + t,
                                             at + t + 1)
         return hidden[:, -1], hid
 
@@ -3533,22 +2795,20 @@ def vlm_embeds_phase(torch, ref, counters):
               f"{flops_ms:.2f} ms ({flops / 1e12:.2f} TFLOP of weight products); decode step "
               f"(B={B}, {S + 1} keys a row) {step_ms:.2f} ms, bound {bytes_ms:.3f} ms "
               f"({step_bytes / 1e9:.2f} GB)")
-        device_profile(torch, prefill, f"{name} embeds prefill")
-        device_profile(torch, step, f"{name} embeds decode step")
-    _hold_flash(torch, ref, counters, f"{name} embeds layer 0", fl.calls[0])
-    _hold_decode(torch, ref, counters, f"{name} embeds layer 0", dc.calls[0])
+        device_profile(prefill, f"{name} embeds prefill")
+        device_profile(step, f"{name} embeds decode step")
+    _hold_flash(counters, f"{name} embeds layer 0", fl.calls[0])
+    _hold_decode(counters, f"{name} embeds layer 0", dc.calls[0])
     print(f"{name} embeds: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"(weights {2 * n_params / 1e9:.2f} GB)")
     return launches
 
 
-def e2e_phase(torch, counters):
+def e2e_phase(counters):
     """``launch/serve_with_prod.py`` at its defaults on the card (tiny-lm
     trained 300 steps, 64 prompts x 8 generations of up to 96 tokens, the
     head, then 96 served requests through stages 4-9); it prints each
     stage's rows. Flash, decode and the head must launch; the scan must not."""
-    import numpy as np
-
     from repro_torch.launch import serve_with_prod
 
     for c in counters.values():
@@ -3574,7 +2834,7 @@ def e2e_phase(torch, counters):
 PORT_KERNELS = ("flash_fwd_", "decode_fwd", "ssd_scan_", "prod_head_")
 
 
-def device_profile(torch, fn, label: str, top: int = 6) -> None:
+def device_profile(fn, label: str, top: int = 6) -> None:
     """Device busy share of one call of ``fn`` and the kernels that take
     most of its device time (torch.profiler, CUDA kernel events only: the
     device ranges of the program's spans, ``common/scopes.py``, are user
@@ -3658,7 +2918,7 @@ def _bus_rates(colls) -> str:
                      for (kind, n, nbytes), (calls, sec) in sorted(by.items()))
 
 
-def _bus_sweep(torch, dist, mesh, colls, reps: int = 10):
+def _bus_sweep(dist, mesh, colls, reps: int = 10):
     """Each distinct collective of ``colls`` alone at its size: a warm-up
     call, the ranks meet at a barrier, then ``reps`` calls between CUDA
     events. Returns [kind, ranks, bytes a rank puts in, ms each, bus GB/s]."""
@@ -3679,7 +2939,7 @@ def _bus_sweep(torch, dist, mesh, colls, reps: int = 10):
     return out
 
 
-def ep_phase(torch, counters, backend: str = "gloo"):
+def ep_phase(counters, backend: str = "gloo"):
     """The expert-parallel MoE (``models/moe.py``) in 4 processes
     (``chip_smoke.py --phase ep RANK PORT DIR BACKEND``, ``ep_child``). Over
     gloo (this script) the 4 ranks share this card: NCCL refuses two ranks
@@ -3739,42 +2999,42 @@ def ep_phase(torch, counters, backend: str = "gloo"):
     check(all(x["same_weights"] for x in res), "ep: the ranks' seeded weights differ")
     for case in res[0]["cases"]:
         per_rank = [x["cases"][case] for x in res]
-        ref = res[0]["cases"][case]
+        r0 = res[0]["cases"][case]
         transport = ("gloo through host memory: not an NVLink time" if backend == "gloo"
                      else "NCCL")
         print(f"ep {case}: no-drop output against the single-device path max|err| "
-              f"{ref['err']:.4g} at max|out| {ref['scale']:.4g} ({ref['err'] / ref['scale']:.3g} "
+              f"{r0['err']:.4g} at max|out| {r0['scale']:.4g} ({r0['err'] / r0['scale']:.3g} "
               f"of it; tolerance 2e-2); defaults: second call bit-identical "
               f"{[x['same'] for x in per_rank]}, pairs dropped per shard "
               f"{[x['dropped'] for x in per_rank]} of {[x['pairs'] for x in per_rank]} "
-              f"at capacity {ref['cap']}; ms per call per rank (CUDA events) "
+              f"at capacity {r0['cap']}; ms per call per rank (CUDA events) "
               f"{[round(x['ms'], 2) for x in per_rank]}, collectives' share "
               f"{[round(x['coll_ms'] / x['ms'], 3) for x in per_rank]} ({transport})")
-        print(f"ep {case}: no-drop gradient of sum(y * c) on {ref['bwd_rows']} x 128 tokens "
+        print(f"ep {case}: no-drop gradient of sum(y * c) on {r0['bwd_rows']} x 128 tokens "
               f"against the single-device one "
-              + ", ".join(f"{k} max|err| {ref['grad_err'][k]:.4g} at max|grad| "
-                          f"{ref['grad_scale'][k]:.4g} ({ref['grad_err'][k] / ref['grad_scale'][k]:.3g})"
+              + ", ".join(f"{k} max|err| {r0['grad_err'][k]:.4g} at max|grad| "
+                          f"{r0['grad_scale'][k]:.4g} ({r0['grad_err'][k] / r0['grad_scale'][k]:.3g})"
                           for k in EP_LEAVES)
               + f" (rank 0's block of each weight; tolerance 2e-2); each rank's weight "
               f"gradients zero outside its block {[x['zero_outside'] for x in per_rank]}, x's "
-              f"and the router's the same on every rank {ref['grads_agree']}; backward ms per "
+              f"and the router's the same on every rank {r0['grads_agree']}; backward ms per "
               f"rank {[round(x['bwd_ms'], 2) for x in per_rank]}, collectives' share "
               f"{[round(x['bwd_coll_ms'] / x['bwd_ms'], 3) for x in per_rank]}")
-        print(f"ep {case}: rank 0's collectives, timed default call: {_bus_rates(ref['colls'])}; "
-              f"backward: {_bus_rates(ref['bwd_colls'])}")
+        print(f"ep {case}: rank 0's collectives, timed default call: {_bus_rates(r0['colls'])}; "
+              f"backward: {_bus_rates(r0['bwd_colls'])}")
         if backend == "nccl":
             print(f"ep {case}: rank 0's collectives alone at these sizes (10 calls after a "
                   f"barrier, CUDA events): " + "; ".join(
                       f"{k} over {n} of {b / 1e6:.2f} MB: {ms:.4f} ms, bus {gbs:.1f} GB/s"
-                      for k, n, b, ms, gbs in ref["bus"])
+                      for k, n, b, ms, gbs in r0["bus"])
                   + " (NVLink's data-sheet rate: 450 GB/s each way)")
-        check(ref["err"] <= 2e-2 * ref["scale"], f"ep {case}: differs from the single device")
+        check(r0["err"] <= 2e-2 * r0["scale"], f"ep {case}: differs from the single device")
         for k in EP_LEAVES:
-            check(ref["grad_err"][k] <= 2e-2 * ref["grad_scale"][k],
+            check(r0["grad_err"][k] <= 2e-2 * r0["grad_scale"][k],
                   f"ep {case}: the gradient of {k} differs from the single device's")
         check(all(x["zero_outside"] for x in per_rank),
               f"ep {case}: a weight gradient is nonzero outside the rank's block")
-        check(ref["grads_agree"], f"ep {case}: x's or the router's gradient differs between ranks")
+        check(r0["grads_agree"], f"ep {case}: x's or the router's gradient differs between ranks")
         check(all(x["same"] for x in per_rank), f"ep {case}: a second call differs")
         check(all(x["finite"] for x in per_rank), f"ep {case}: output not finite")
     launches = {k: sum(x["launches"][k] for x in res) for k in counters}
@@ -3785,7 +3045,7 @@ def ep_phase(torch, counters, backend: str = "gloo"):
     return launches
 
 
-def _timed_collectives(torch, mesh, log):
+def _timed_collectives(mesh, log):
     """Time each of ``mesh``'s collectives (host clock between device
     synchronisations) into ``log`` as (kind, axes, ranks, bytes in,
     seconds)."""
@@ -3804,7 +3064,7 @@ def _timed_collectives(torch, mesh, log):
     return run
 
 
-def _checksums_agree(torch, dist, backend, tensors) -> bool:
+def _checksums_agree(dist, backend, tensors) -> bool:
     """Whether every rank holds the same ``tensors``: their sums and norms
     in fp64, all-gathered and compared exactly."""
     sums = torch.stack([v for t in tensors for v in (t.sum(dtype=torch.float64),
@@ -3816,7 +3076,7 @@ def _checksums_agree(torch, dist, backend, tensors) -> bool:
     return all(torch.equal(e, every[0]) for e in every)
 
 
-def ep_child(torch, counters, rank: int, port: int, out_dir: Path,
+def ep_child(counters, rank: int, port: int, out_dir: Path,
              backend: str = "gloo") -> None:
     """One rank of ``ep_phase`` (``chip_smoke.py --phase ep RANK PORT DIR
     [BACKEND]``): gloo ranks share card 0, an NCCL rank takes card RANK."""
@@ -3846,7 +3106,7 @@ def ep_child(torch, counters, rank: int, port: int, out_dir: Path,
                     device=dev).to(torch.bfloat16)
     c = torch.randn((4, 128, d), generator=torch.Generator(device=dev).manual_seed(2),
                     device=dev)
-    same_weights = _checksums_agree(torch, dist, backend, [x, c, *p.values()])
+    same_weights = _checksums_agree(dist, backend, [x, c, *p.values()])
     meshes = {shape: make_test_mesh(*shape) for shape in {s for s, _ in EP_CASES}}
     for cnt in counters.values():
         cnt.launches = 0
@@ -3892,7 +3152,7 @@ def ep_child(torch, counters, rank: int, port: int, out_dir: Path,
     for shape, mode in EP_CASES:
         mesh = meshes[shape]
         log = []
-        run = _timed_collectives(torch, mesh, log)
+        run = _timed_collectives(mesh, log)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         # no drop: the output, then the gradient on bwd_rows (the backward timed)
         nodrop_kw = dict(mesh=mesh, capacity_factor=0.0, cap_slack=1.0, fsdp_mode=mode)
@@ -3922,7 +3182,7 @@ def ep_child(torch, counters, rank: int, port: int, out_dir: Path,
                   "w_down": (slice(mi * e_l, (mi + 1) * e_l), slice(None),
                              slice(di * d_l, (di + 1) * d_l))}
         blocks["w_up"] = blocks["w_gate"]
-        case["grads_agree"] = _checksums_agree(torch, dist, backend,
+        case["grads_agree"] = _checksums_agree(dist, backend,
                                                [got_g["x"], got_g["router"]])
         if rank == 0:
             case["err"] = float((nodrop.float() - want.float()).abs().max())
@@ -3961,7 +3221,7 @@ def ep_child(torch, counters, rank: int, port: int, out_dir: Path,
         case["finite"] = case["finite"] and bool(torch.isfinite(a).all())
         mesh._run = run
         if backend == "nccl":
-            case["bus"] = _bus_sweep(torch, dist, mesh, case["colls"] + case["bwd_colls"])
+            case["bus"] = _bus_sweep(dist, mesh, case["colls"] + case["bwd_colls"])
         cases[f"{shape[0]}x{shape[1]} {mode}"] = case
         del a, b
         torch.cuda.empty_cache()
@@ -3972,13 +3232,13 @@ def ep_child(torch, counters, rank: int, port: int, out_dir: Path,
         del p, x, c, want, want_g
         gc.collect()
         torch.cuda.empty_cache()
-        out["serve"] = mesh_serve(torch, counters, dist, rank, dev)
+        out["serve"] = mesh_serve(counters, dist, rank, dev)
     (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
 
 
-def mesh_serve(torch, counters, dist, rank: int, dev):
+def mesh_serve(counters, dist, rank: int, dev):
     """On each NCCL rank: Qwen3-MoE-235B-A22B at full width and
     MESH_SERVE's depth served through ``RealEngine`` on ``build_model(cfg,
     mesh=(1, 4) mesh)`` (the reference's ``RealEngine(model, params,
@@ -3988,8 +3248,6 @@ def mesh_serve(torch, counters, dist, rank: int, dev):
     layer of one prefill against the single-device expert FFN on the same
     inputs at the same capacity, and its prefill logits against a mesh-less
     model's on the same params."""
-    import numpy as np
-
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.serve import fit_and_predict
@@ -4006,7 +3264,7 @@ def mesh_serve(torch, counters, dist, rank: int, dev):
     params = model.init(seed=0, device=dev)
     leaves = list(_leaves(params))
     res = {"n_params": sum(int(t.numel()) for t in leaves),
-           "same_params": _checksums_agree(torch, dist, "nccl", leaves)}
+           "same_params": _checksums_agree(dist, "nccl", leaves)}
     B, Sp, max_new = 8, 512, 64
     prompts, plens = served_prompts(cfg.vocab_size)
     eng = RealEngine(model, params, max_new=max_new)
@@ -4050,9 +3308,9 @@ def mesh_serve(torch, counters, dist, rank: int, dev):
         nxt = torch.full((B,), 5, dtype=torch.long, device=dev)
         step = lambda: model.decode_step(params, nxt, cache, pos, pos + 1)
         res["step_ms"] = time_ms(step, iters=10, warmup=2)
-        res["profile"] = device_profile(torch, step, f"mesh serve rank {rank} decode step")
+        res["profile"] = device_profile(step, f"mesh serve rank {rank} decode step")
         log = []
-        run = _timed_collectives(torch, mesh, log)
+        run = _timed_collectives(mesh, log)
         step()
         mesh._run = run
         res["step_colls"] = [[k, n] for k, _, n, _, _ in log]
@@ -4185,7 +3443,7 @@ def dryrun_result(child, t0: float):
     return out["launches"]
 
 
-def dryrun_child(torch, counters) -> None:
+def dryrun_child(counters) -> None:
     """``launch/dryrun.py``'s run_one for DRYRUN_COMBOS on the pod mesh, the
     roofline table of the results, and the card's memory against
     ``launch/mesh.py``'s HBM_BYTES. Prints a JSON line last."""
@@ -4213,7 +3471,7 @@ def dryrun_child(torch, counters) -> None:
                       "launches": {k: c.launches for k, c in counters.items()}}))
 
 
-def mesh_checks(torch, model, params_bytes: int, cache_bytes: int, B: int, Sp: int,
+def mesh_checks(model, params_bytes: int, cache_bytes: int, B: int, Sp: int,
                 cache_len: int, flops_bound: float) -> None:
     """The serve phase's check of the mesh tooling on Llama-3-8B: on a (1, 1)
     mesh the per-device argument bytes of the params and a B x cache_len
@@ -4221,8 +3479,6 @@ def mesh_checks(torch, model, params_bytes: int, cache_bytes: int, B: int, Sp: i
     on the card, within 0.1%; the prefill traced on fake tensors
     (``launch/graph_analysis.py``) does at least the weight products'
     FLOPs and at most those plus the attention pairs'."""
-    import numpy as np
-
     from repro_torch.common.pytree import fake_tensor
     from repro_torch.common.sharding import map_axes, shard_shape, tree_shardings
     from repro_torch.launch import graph_analysis
@@ -4266,38 +3522,19 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_wrappers():
-    """Each kernel's wrapper, by name; each counts its launches."""
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.prod_head import prod_head_cuda
-    from repro_torch.kernels.rms_norm import rms_norm_cuda
-    from repro_torch.kernels.rope import rope_cuda
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-    from repro_torch.kernels.unembed import unembed_cuda
-
-    return {"prod_head": prod_head_cuda, "flash_attention": flash_attention_cuda,
-            "decode_attention": decode_attention_cuda, "ssd_scan": ssd_scan_cuda,
-            "unembed": unembed_cuda, "rms_norm": rms_norm_cuda, "rope": rope_cuda}
-
-
 def main() -> int:
-    import torch
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import _build, ref
-
     kernels = kernel_wrappers()
     # the ep ranks and the dryrun child build no kernel (an NCCL rank's serve
     # loads what its parent built)
     if sys.argv[1:3] == ["--phase", "ep"]:              # a rank of ep_phase
-        ep_child(torch, kernels, int(sys.argv[3]), int(sys.argv[4]), Path(sys.argv[5]),
+        ep_child(kernels, int(sys.argv[3]), int(sys.argv[4]), Path(sys.argv[5]),
                  *sys.argv[6:7])
         return 0
     if sys.argv[1:] == ["--phase", "dryrun"]:           # the child of dryrun_child_start
-        dryrun_child(torch, kernels)
+        dryrun_child(kernels)
         return 0
     # the plain versions are the reference: full fp32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4316,7 +3553,7 @@ def main() -> int:
                 print(f"  {lib.name.split('-')[0]}: {line.strip()}")
 
     if sys.argv[1:] == ["--phase", "cluster"]:          # the child of cluster_child
-        launches, stamped = cluster_phase(torch, kernels)
+        launches, stamped = cluster_phase(kernels)
         print(json.dumps({"launches": launches, "stamped": stamped}))
         return 0
     wall, since = {}, [time.perf_counter()]
@@ -4327,45 +3564,45 @@ def main() -> int:
         now = time.perf_counter()
         wall[phase], since[0] = round(now - since[0], 1), now
 
-    rows = kernel_checks(torch, ref, kernels)
-    rows += gemma3_kernel_checks(torch, ref, kernels)
-    rows += moe_kernel_checks(torch, ref, kernels)
-    rows += mla_kernel_checks(torch, ref, kernels)
-    rows += encdec_vlm_kernel_checks(torch, ref, kernels)
-    rows += unembed_kernel_checks(torch, ref, kernels)
-    rows += norm_rope_kernel_checks(torch, ref, kernels)
+    rows = kernel_checks()
+    rows += gemma3_kernel_checks()
+    rows += moe_kernel_checks()
+    rows += mla_kernel_checks()
+    rows += encdec_vlm_kernel_checks()
+    rows += unembed_kernel_checks()
+    rows += norm_rope_kernel_checks()
     mark("kernels")
     by_phase = {}
-    by_phase["run"], run_rows = run_phase(torch, kernels)
+    by_phase["run"], run_rows = run_phase(kernels)
     rows += run_rows
     mark("run")
-    by_phase["ep"] = ep_phase(torch, kernels)
+    by_phase["ep"] = ep_phase(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     mark("ep")
     for i, (name, r, on_path, profile, depth) in enumerate(SERVE_PHASES):
-        by_phase[name] = serve(torch, kernels, name, r, on_path, sweep=(i == 0),
+        by_phase[name] = serve(kernels, name, r, on_path, sweep=(i == 0),
                                profile=profile, depth=depth)
         gc.collect()                 # each model's weights go before the next's
         torch.cuda.empty_cache()
         mark(name)
-    by_phase["kimi-k2-instruct"] = mla_phase(torch, ref, kernels)
+    by_phase["kimi-k2-instruct"] = mla_phase(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     mark("kimi-k2-instruct")
-    by_phase["long"] = long_phase(torch, ref, kernels)
+    by_phase["long"] = long_phase(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     mark("long")
-    by_phase["gemma3 long"] = gemma3_long_phase(torch, ref, kernels)
+    by_phase["gemma3 long"] = gemma3_long_phase(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     mark("gemma3 long")
-    by_phase["qwen2-vl-2b embeds"] = vlm_embeds_phase(torch, ref, kernels)
+    by_phase["qwen2-vl-2b embeds"] = vlm_embeds_phase(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     mark("qwen2-vl-2b embeds")
-    by_phase["whisper-large-v3"] = whisper_phase(torch, ref, kernels)
+    by_phase["whisper-large-v3"] = whisper_phase(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     mark("whisper-large-v3")
@@ -4374,12 +3611,12 @@ def main() -> int:
     t_child, child = time.perf_counter(), cluster_child()
     t_dryrun, dry_child = time.perf_counter(), dryrun_child_start()
     try:
-        by_phase["table1"], t1_rows = table1_phase(torch, kernels)
+        by_phase["table1"], t1_rows = table1_phase(kernels)
         mark("table1")
-        by_phase["ablations"] = ablations_phase(torch, kernels, t1_rows)
+        by_phase["ablations"] = ablations_phase(kernels, t1_rows)
         mark("ablations")
-        by_phase["sim"] = sim_phase(torch, kernels)
-        by_phase["single"] = single_phase(torch, kernels)
+        by_phase["sim"] = sim_phase(kernels)
+        by_phase["single"] = single_phase(kernels)
         mark("sim, single")
         by_phase["cluster"] = cluster_result(child, t_child)
         mark("cluster (the wait for its child)")
@@ -4390,45 +3627,29 @@ def main() -> int:
             if c.poll() is None:
                 c.kill()
                 c.wait()
-    by_phase["train"] = train_phase(torch, kernels)
+    by_phase["train"] = train_phase(kernels)
     torch.cuda.empty_cache()
     mark("train")
-    by_phase["ssm train"] = ssm_train_phase(torch, kernels)
+    by_phase["ssm train"] = ssm_train_phase(kernels)
     mark("ssm train")
-    by_phase["int8 kv"] = int8_kv_phase(torch, kernels)
+    by_phase["int8 kv"] = int8_kv_phase(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     mark("int8 kv")
-    by_phase["online"] = online_phase(torch, ref, kernels)
+    by_phase["online"] = online_phase(kernels)
     mark("online")
-    by_phase["e2e"] = e2e_phase(torch, kernels)
+    by_phase["e2e"] = e2e_phase(kernels)
     mark("e2e")
     print(f"phase wall times (s): {json.dumps(wall)}; {sum(wall.values()):.1f} s from the "
           f"kernel phase to the end")
 
-    sources = {"prod_head": ("src/repro_torch/kernels/csrc/prod_head.cu",
-                             "src/repro/kernels/prod_head.py:61"),
-               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:69"),
-               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:64"),
-               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan.py:61"),
-               # no TPU kernel: the reference's unembed is a plain fp32 product
-               "unembed": ("src/repro_torch/kernels/csrc/unembed.cu",
-                           "src/repro/models/layers.py:135-138"),
-               # no TPU kernel: the reference writes the norm and RoPE in jnp
-               "rms_norm": ("src/repro_torch/kernels/csrc/rms_norm.cu",
-                            "src/repro/models/layers.py:83-88"),
-               "rope": ("src/repro_torch/kernels/csrc/rope.cu",
-                        "src/repro/models/rope.py:49-56")}
     report = []
     for r in rows:
         if any(k["name"] == r["name"] for k in report):
             continue             # one entry per kernel: its first (serving) shape
-        src, replaces = sources[r["name"]]
         n = r["name"]
-        report.append({"name": n, "route": "cuda", "source": src, "replaces": replaces,
+        report.append({"name": n, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{n}.cu",
+                       "replaces": REPLACES[n],
                        "launches": sum(ph[n] for ph in by_phase.values()),
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -45,7 +45,7 @@ Departures from the published code:
 Spans (``common/scopes.py``): ``mla.q`` (q down, norm, up, rope), ``mla.kv``
 (kv down, norm, k_pe rope; at prefill the W_kvb expansion), ``mla.attend``
 (flash, or the absorbed products) and ``mla.out`` (W_UV at decode, and
-W_o); the counter ``mla.cache_tokens`` counts the latent positions written.
+W_o).
 """
 
 from __future__ import annotations
@@ -146,7 +146,6 @@ def mla_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         k = torch.cat([kv[..., :n], entry[:, :, None, R:].expand(B, S, H, r)], dim=-1)
         v = kv[..., n:].contiguous()
         q = torch.cat([q_nope, q_pe], dim=-1)
-    scopes.count("mla.cache_tokens", B * S)
     with scopes.span("mla.attend"):
         o = ops.flash_attention(q, k, v, causal=True, kv_lengths=kv_lengths,
                                 scale=softmax_scale(cfg))
@@ -165,7 +164,6 @@ def mla_decode(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     q_nope, q_pe = _query(p, x, cfg, angles)
     with scopes.span("mla.kv"):
         cache[rows, slot] = _entry(p, x, cfg, angles)[:, 0]
-    scopes.count("mla.cache_tokens", x.shape[0])
     w_kvb = p["wkv_b"].transpose(0, 1)                                  # (H, R, n + c)
     with scopes.span("mla.attend"):
         # W_UK folded into q, a product a head: (H, B, n) x (H, n, R)

@@ -980,7 +980,7 @@ def test_bench_kernels_measure_on_the_card():
     from repro_torch.launch import bench_kernels
 
     dev = cuda_device()
-    rows = bench_kernels.measure(dev, iters=3)
+    rows = bench_kernels.measure(bench_kernels.cases(dev), iters=3)
     assert [r["row"] for r in rows] == ["flash_attention_512", "decode_attention_4k",
                                         "ssd_scan_512", "prod_head_128x1024"]
     for r in rows:

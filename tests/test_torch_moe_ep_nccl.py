@@ -41,4 +41,4 @@ def test_ep_and_mesh_serve_over_nccl():
     from repro_torch.kernels import _build
 
     _build.build_all()                # the workers load what is built here
-    chip_smoke.ep_phase(torch, chip_smoke.kernel_wrappers(), backend="nccl")
+    chip_smoke.ep_phase(chip_smoke.kernel_wrappers(), backend="nccl")

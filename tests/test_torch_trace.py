@@ -215,7 +215,7 @@ def test_device_profile_counts_no_span_as_a_kernel():
     eng = _engine("moe", device="cuda")
     prompts, plens = _prompts()
     fn = lambda: _generate(eng, prompts, plens)
-    got = _chip_smoke().device_profile(torch, fn, "tiny moe generate")
+    got = _chip_smoke().device_profile(fn, "tiny moe generate")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
